@@ -1,0 +1,190 @@
+"""Bilateral-grid filter of the dense CRF (counterpart of
+``wsss_tpu/ops/crf/mxu_grid.py``'s ``MXUBilateralGrid``).
+
+The filter approximates ``K @ x`` per image, with
+``K = exp(-|dp|^2 / 2 sxy^2 - |dI|^2 / 2 srgb^2)`` (self weight 1):
+
+  * splat:  each pixel adds its value, times its 4 bilinear spatial
+    weights, into its nearest colour cell of the 4 grid nodes around it
+    (spatial cells of t = sxy/k pixels, colour cells of cell_mult*srgb);
+  * blur:   radius-2 Gaussian taps along the 3 colour axes (zero fill),
+    then one Kronecker band-matrix product over the gy*gx spatial nodes;
+  * slice:  each pixel reads back its colour cell of the same 4 nodes
+    with the same weights.
+
+The geometry (cell sizes, blur sigmas calibrated for the interpolation
+variance, routing limits) is the reference's, copied here.  The grid
+itself is laid out canonically, ``[B, gy, gx, gc, gc, gc, C]`` f32: the
+TPU's one-hot matmuls, per-tile partials and lane packing do not carry
+over (see ``wsss_tpu_torch/kernels/bilateral.py`` for the kernels and
+their plain versions).  The spatial blur stays a matrix product, as the
+reference leaves it to XLA.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from wsss_tpu_torch.kernels import bilateral as K
+
+_BLUR_RADIUS = 2            # colour-axis taps
+_MAX_TILE = 48              # spatial cell cap of the TPU tiling
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _spatial_cell(sxy: float, require8: bool = True):
+    """(t, k): spatial cell t = round(sxy)/k with the smallest k keeping
+    t <= _MAX_TILE (and, with require8, t a multiple of 8 — the routing
+    of the TPU's compiled kernels, which the port follows); None if sxy
+    is not an integer >= 3 or no k fits."""
+    t0 = int(round(sxy))
+    if abs(sxy - t0) > 1e-6 or t0 < 3:
+        return None
+    for k in range(1, t0 + 1):
+        if t0 % k != 0 or t0 // k > _MAX_TILE:
+            continue
+        if require8 and (t0 // k) % 8:
+            continue
+        return t0 // k, k
+    return None
+
+
+def grid_dims(srgb: float, cell_mult: float = 1.0) -> Tuple[int, int]:
+    """(cells per colour axis, colour-cube size) for nearest assignment
+    of 0..255 intensities at cell size cell_mult*srgb."""
+    gc = int(round(255.0 / (srgb * cell_mult))) + 1
+    return gc, gc ** 3
+
+
+def applicable(sxy: float, srgb: float, n_ch: int = 32,
+               cell_mult: float = 1.0, require8: bool = True) -> bool:
+    """Whether the grid takes this kernel config — the reference's limits
+    (integer cell, colour-cube sizes), so configs route as on the TPU."""
+    tk = _spatial_cell(sxy, require8)
+    if tk is None:
+        return False
+    t, _ = tk
+    gc, _ = grid_dims(srgb, cell_mult)
+    hip = _round_up(gc * gc, 16)
+    p = _round_up(t * t, 16)
+    return (gc * gc <= 4096
+            and gc * 4 * n_ch <= 4096
+            and hip * p * 2 * 5 <= 12 * 1024 * 1024
+            and gc ** 3 * 4 * n_ch <= 2_500_000)
+
+
+def _blur_taps(sigma: float) -> Tuple[float, ...]:
+    x = np.arange(-_BLUR_RADIUS, _BLUR_RADIUS + 1, dtype=np.float64)
+    return tuple(float(v) for v in np.exp(-0.5 * (x / sigma) ** 2))
+
+
+def _band_mat(n: int, sigma: float, radius: int) -> np.ndarray:
+    """[n, n] truncated-Gaussian band matrix (self weight 1)."""
+    m_ = np.zeros((n, n))
+    d = np.exp(-0.5 * (np.arange(-radius, radius + 1) / sigma) ** 2)
+    for off in range(-radius, radius + 1):
+        if abs(off) < n:
+            m_ += np.diag(np.full(n - abs(off), d[off + radius]), k=off)
+    return m_
+
+
+class MXUBilateralGrid:
+    """Batched bilateral-grid filter on the guide images imgs
+    [B, H, W, 3] (0..255); ``filter`` maps [B, H, W, C'] -> [B, H, W, C']
+    for C' <= n_ch, on the device of imgs.
+
+    share_from: a grid built on the same imgs/sxy/srgb/cell_mult whose
+    channel-independent geometry (colour cells, blur matrices) is reused
+    — the CRF's C=1 normalizer grid shares the message grid's.
+    require8=False admits cells that are not a multiple of 8 (the
+    reference's interpret-mode geometry, for tests).
+    ref_round=True runs the plain versions with bf16 rounding at the
+    reference kernels' rounding points — a CPU-test switch only."""
+
+    def __init__(self, imgs: torch.Tensor, sxy: float, srgb: float,
+                 n_ch: int, cell_mult: float = 1.0,
+                 share_from: Optional['MXUBilateralGrid'] = None,
+                 require8: bool = True, ref_round: bool = False):
+        if imgs.ndim != 4:
+            raise ValueError('MXUBilateralGrid wants batched [B,H,W,3]')
+        if not applicable(sxy, srgb, n_ch, cell_mult, require8=require8):
+            raise ValueError(f'bilateral grid inapplicable for sxy={sxy} '
+                             f'srgb={srgb} n_ch={n_ch}')
+        b, h, w = imgs.shape[:3]
+        t, k_sp = _spatial_cell(sxy, require8)
+        self.bhw = (b, h, w)
+        self.t, self.k_sp = t, k_sp
+        self.n_ch = n_ch
+        self.ref_round = ref_round
+        self.nty, self.ntx = -(-h // t), -(-w // t)
+        self.gy, self.gx = self.nty + 1, self.ntx + 1
+        gc, _ = grid_dims(srgb, cell_mult)
+        self.gc = gc
+        cell = srgb * cell_mult
+        # colour sigma in cell units minus the nearest-assignment variance
+        # (1/12 per side); the floor keeps the taps well-formed
+        self.sig_col = float(np.sqrt(max((srgb / cell) ** 2 - 1.0 / 6.0,
+                                         0.05)))
+        if share_from is not None:
+            s = share_from
+            if (s.bhw, s.t, s.gc, s.k_sp) != (self.bhw, t, gc, k_sp):
+                raise ValueError('share_from grid has different geometry '
+                                 '(imgs/sxy/srgb/cell_mult must match)')
+            self.cell, self.blur_sp, self.taps = s.cell, s.blur_sp, s.taps
+            return
+        idx = torch.clamp(torch.round(imgs.to(torch.float32) / cell),
+                          0, gc - 1).to(torch.int32)
+        self.cell = ((idx[..., 0] * gc + idx[..., 1]) * gc
+                     + idx[..., 2]).contiguous()          # [B,H,W] int32
+        # spatial sigma in cell units: k_sp cells minus the bilinear
+        # splat+slice variance (1/6 + 1/6 per axis)
+        sig_sp = float(np.sqrt(k_sp ** 2 - 1.0 / 3.0))
+        rad_sp = max(2, int(np.ceil(3.0 * sig_sp)))
+        self.blur_sp = torch.as_tensor(
+            np.kron(_band_mat(self.gy, sig_sp, rad_sp),
+                    _band_mat(self.gx, sig_sp, rad_sp)).astype(np.float32),
+            device=imgs.device)                     # [gy*gx, gy*gx]
+        taps5 = _blur_taps(self.sig_col)
+        self.taps = taps5[_BLUR_RADIUS:]            # (centre, +-1, +-2)
+
+    def _spatial_blur(self, grid: torch.Tensor) -> torch.Tensor:
+        b = grid.shape[0]
+        flat = grid.reshape(b, self.gy * self.gx, -1)
+        if self.ref_round:      # bf16 operands and output (mxu_grid:1017)
+            return K.bf16_round(torch.matmul(K.bf16_round(self.blur_sp),
+                                             flat)).view(grid.shape)
+        return torch.matmul(self.blur_sp, flat).view(grid.shape)
+
+    def filter(self, x: torch.Tensor) -> torch.Tensor:
+        """Approximate K @ x per image; x [B, H, W, C'] with C' <= n_ch
+        (fewer channels are zero-padded through the grid and cut off)."""
+        if tuple(x.shape[:3]) != self.bhw:
+            raise ValueError(f'filter input {tuple(x.shape)} does not '
+                             f'match the guide {self.bhw}')
+        cin = x.shape[-1]
+        if cin > self.n_ch:
+            raise ValueError(f'filter input has {cin} channels; grid '
+                             f'built for {self.n_ch}')
+        x = x.to(torch.float32)
+        if cin < self.n_ch:
+            x = torch.nn.functional.pad(x, (0, self.n_ch - cin))
+        x = x.contiguous()
+        t, gy, gx, gc = self.t, self.gy, self.gx, self.gc
+        if self.ref_round:
+            grid = K.bilateral_splat_plain(x, self.cell, t, gy, gx, gc,
+                                           ref_round=True)
+            grid = K.bilateral_color_blur_plain(grid, self.taps,
+                                                ref_round=True)
+            grid = self._spatial_blur(grid)
+            out = K.bilateral_slice_plain(grid, self.cell, t)
+        else:
+            grid = K.bilateral_splat(x, self.cell, t, gy, gx, gc)
+            grid = K.bilateral_color_blur(grid, self.taps)
+            grid = self._spatial_blur(grid)
+            out = K.bilateral_slice(grid, self.cell, t)
+        return out[..., :cin]

@@ -1,0 +1,47 @@
+"""Image resampling of the port (counterpart of ``wsss_tpu/ops/filters.py``
+``resize_bilinear`` / ``resize_nearest``).
+
+The reference resizes with ``jax.image.resize``: half-pixel centres, and
+an antialiasing triangle kernel widened by the scale when downsampling.
+``F.interpolate(mode='bilinear', align_corners=False)`` computes the same
+function: with ``antialias=True`` when an axis shrinks (torch's
+antialiased path widens its kernel per axis exactly as jax does, and
+reduces to plain bilinear on an axis that grows), and without it when
+both grow.  ``mode='nearest-exact'`` is jax's half-pixel nearest.
+Layout is the JAX package's: channels last.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def _nhwc_resize(x: torch.Tensor, out_hw: Tuple[int, int],
+                 mode: str) -> torch.Tensor:
+    """Resize the two spatial axes of [..., H, W, C]."""
+    lead, (h, w, c) = x.shape[:-3], x.shape[-3:]
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    if (oh, ow) == (h, w):
+        return x
+    xc = x.reshape((-1, h, w, c)).permute(0, 3, 1, 2)
+    if mode == 'bilinear':
+        y = F.interpolate(xc, size=(oh, ow), mode='bilinear',
+                          align_corners=False,
+                          antialias=(oh < h or ow < w))
+    else:
+        y = F.interpolate(xc, size=(oh, ow), mode='nearest-exact')
+    return y.permute(0, 2, 3, 1).reshape(lead + (oh, ow, c))
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]
+                    ) -> torch.Tensor:
+    """Bilinear resize of [..., H, W, C] (``jax.image.resize`` bilinear)."""
+    return _nhwc_resize(x, out_hw, 'bilinear')
+
+
+def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]
+                   ) -> torch.Tensor:
+    """Nearest resize of [..., H, W, C] (``jax.image.resize`` nearest)."""
+    return _nhwc_resize(x, out_hw, 'nearest')

@@ -1,0 +1,55 @@
+"""Grad-CAM of the port (counterpart of ``wsss_tpu/ops/gradcam.py``
+``gradcam_weights`` and ``grad_cam_confidence``).
+
+The Grad-CAM weights are input-independent: computed once on a zero
+image.  Per class c, the gradient of the pre-sigmoid logit y_c with
+respect to the final conv activations is normalized by its RMS
+(``g / (sqrt(mean(g^2)) + 1e-5)``) and averaged over space into a static
+[F, C] matrix.  HistoSegNet's CAM applies ReLU after the per-map resize,
+max-normalizes per image and scales by the confidence scores of the
+passing classes.
+"""
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+from wsss_tpu_torch.ops.filters import resize_bilinear
+
+
+def gradcam_weights(feats_fn: Callable[[torch.Tensor], torch.Tensor],
+                    head_fn: Callable[[torch.Tensor], torch.Tensor],
+                    input_hw: Tuple[int, int], device) -> torch.Tensor:
+    """Static Grad-CAM weight matrix [F, C] from a zero image.
+
+    feats_fn: NHWC image [1, H, W, 3] -> activations [1, h, w, F]
+    head_fn:  activations [1, h, w, F] -> pre-sigmoid logits [1, C]
+    """
+    x0 = torch.zeros((1, input_hw[0], input_hw[1], 3), dtype=torch.float32,
+                     device=device)
+    with torch.no_grad():
+        feats = feats_fn(x0)
+    feats = feats.detach().requires_grad_(True)
+    with torch.enable_grad():
+        logits = head_fn(feats)[0]
+        rows = []
+        for c in range(logits.shape[0]):
+            (g,) = torch.autograd.grad(logits[c], feats, retain_graph=True)
+            g = g / (torch.sqrt(torch.mean(torch.square(g))) + 1e-5)
+            rows.append(torch.mean(g[0], dim=(0, 1)))
+    return torch.stack(rows).t().contiguous().detach()
+
+
+def grad_cam_confidence(feats: torch.Tensor, weights: torch.Tensor,
+                        is_pass: torch.Tensor, conf_scores: torch.Tensor,
+                        upsample_hw: Tuple[int, int]) -> torch.Tensor:
+    """HistoSegNet CAM: feats [B,h,w,F] @ weights [F,C], resized (ReLU
+    after the resize), per-image max-normalized and scaled by
+    conf_scores * is_pass [B, C].  Returns [B, H, W, C]."""
+    cams = torch.einsum('bhwf,fc->bhwc', feats.to(torch.float32), weights)
+    cams = torch.relu(resize_bilinear(cams, upsample_hw))
+    cams = cams / torch.clamp(
+        torch.amax(cams, dim=(1, 2, 3), keepdim=True), min=1e-7)
+    scale = conf_scores * is_pass.to(conf_scores.dtype)
+    return cams * scale[:, None, None, :]
