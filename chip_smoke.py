@@ -1,23 +1,42 @@
 #!/usr/bin/env python3
-"""Drive wsss_tpu_torch's main path on one CUDA card and check it.
+"""Drive wsss_tpu_torch's paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero and prints no result:
   1. device  — a CUDA card is required; prints its name and power limit;
   2. build   — nvcc builds every kernel of wsss_tpu_torch/kernels/csrc;
-  3. kernels — each kernel against its plain PyTorch version at the VOC
-               main path's shapes (64x64 guide, batch 8, gc 16, C 21 and
-               C 1): error against the stated tolerance, and times from
-               CUDA events (median) beside the bound and a library call;
+  3. kernels — each kernel against its plain PyTorch version at the
+               shapes its paths give it: the v2 route's three at the VOC
+               main path's (batch 8, 64x64 guide, C 21 and C 1) and at SEC
+               prediction's (one 375x500 image, 38x50 guide); the v1
+               route's four and the slice at SEC prediction's (5x7 ragged
+               tiles, C 21 and C 1), at the wide path's (batch 2, 32x32
+               guide, C 40 and C 1) and, as an extra, at batch 8 (C 21 and
+               C 40); the cube blur on a cube too large for one block
+               (gc 52).  Error against the stated tolerance (the v1
+               kernels: bit-equal, and the same bits on two runs), and
+               times from CUDA events (median) beside the bound and a
+               library call;
   4. main    — HSNSegmenter.segment_batch for VOC2012 with random-init
                full-width VGG16 fg and bg classifiers at 321^2, batch 8,
                the production CRF config: img/s, CAM- and CRF-stage ms,
-               launch counts of the timed run (each must be > 0), label
-               agreement with the same batch through the plain versions;
-  5. result  — one JSON line of kernels, then the last line
+               launch counts of the timed run (the v2 route's three must
+               be > 0), label agreement with the same batch through the
+               plain versions;
+  5. sec     — predict_image (SEC, full-width DeepLab-LargeFOV, random
+               weights) on 4 VOC-sized images at 321: img/s, FCN and CRF
+               ms and launch counts on the default (v2) route, then on
+               the v1 route (the module flag WSSS_TPU_MXU_V1 sets): label
+               agreement between the routes and with the plain versions;
+               one DSRG image;
+  6. wide    — mean_field at 40 classes, which takes the v1 route without
+               a switch (unfused message grid, fused C=1 grid): launch
+               counts, Q, argmax agreement with the plain versions;
+  7. result  — one JSON line of kernels, then the last line
                {"ok": true, "device": {...}}.
-Needs no network and imports nothing of JAX.
+Every path is driven with the launch counts set to 0 just before it and
+read just after.  Needs no network and imports nothing of JAX.
 """
 import json
 import subprocess
@@ -59,6 +78,22 @@ def bound_ms(n_bytes, n_flops):
     return 1e3 * max(t_b, t_f), ('bytes' if t_b >= t_f else 'operations')
 
 
+V2_KERNELS = ('bilateral_splat', 'bilateral_color_blur', 'bilateral_slice')
+V1_FUSED = ('bilateral_splat_tiles', 'bilateral_fold_blur',
+            'bilateral_slice')
+V1_UNFUSED = ('bilateral_splat_tiles', 'bilateral_fold',
+              'bilateral_cube_blur', 'bilateral_slice')
+
+
+def check_launches(launches, expected, path):
+    """Exactly the kernels of `expected` were launched on `path`."""
+    for name, n in launches.items():
+        if name in expected:
+            check(n > 0, f'{name} was not launched on {path}')
+        else:
+            check(n == 0, f'{name} was launched {n} times on {path}')
+
+
 def phase_device(torch):
     check(torch.cuda.is_available(), 'torch.cuda.is_available() is false')
     smi = subprocess.run(
@@ -80,18 +115,71 @@ def phase_build():
           f'({build.BUILD_DIR})')
 
 
+# batch, image size, bilateral sxy of the path's CRF config and the guide
+# its mean_field resamples to (8-px cells; wsss_tpu_torch/ops/crf/meanfield.py)
+GEOMETRIES = {'hsn': (BATCH, (SIZE, SIZE), 40.0, (GUIDE, GUIDE)),
+              'sec': (1, (375, 500), 80.0, (38, 50)),
+              'wide': (2, (SIZE, SIZE), 80.0, (32, 32))}
+
+
+def path_guide(torch, path, gen):
+    """A random guide image [B, gh, gw, 3] at the size the path's
+    mean_field resamples its images to."""
+    from wsss_tpu_torch.ops.crf.meanfield import MXU_DS_CELL
+    from wsss_tpu_torch.ops.filters import resize_bilinear
+    b, hw, sxy, want = GEOMETRIES[path]
+    ghw = tuple(int(round(n * MXU_DS_CELL / sxy)) for n in hw)
+    check(ghw == want, f'guide of the {path} path changed: {ghw}')
+    imgs = torch.rand((b,) + hw + (3,), generator=gen, device='cuda') * 255
+    return resize_bilinear(imgs, ghw)
+
+
+def hold_v2_kernels(torch, K, geo, x, label):
+    """The v2 route's three kernels against their plain versions on one
+    geometry; returns ({name: max_abs_err}, the plain splat, blur,
+    spatially blurred grid and slice)."""
+    b = x.shape[0]
+    t, gy, gx, gc, cell = geo.t, geo.gy, geo.gx, geo.gc, geo.cell
+    ref_s = K.bilateral_splat_plain(x, cell, t, gy, gx, gc)
+    got_s = K.bilateral_splat(x, cell, t, gy, gx, gc)
+    ref_b = K.bilateral_color_blur_plain(ref_s, geo.taps)
+    got_b = K.bilateral_color_blur(ref_s, geo.taps)
+    g_sp = torch.matmul(geo.blur_sp, ref_b.reshape(b, gy * gx, -1)
+                        ).view(ref_b.shape)
+    ref_l = K.bilateral_slice_plain(g_sp, cell, t)
+    got_l = K.bilateral_slice(g_sp, cell, t)
+    torch.cuda.synchronize()
+    errs = {}
+    # splat: atomics sum in a run-dependent order -> f32 rounding;
+    # blur and slice use the plain version's operation order with
+    # round-to-nearest intrinsics -> bit-equal expected
+    for name, got, ref, tol in (
+            ('bilateral_splat', got_s, ref_s, 1e-5),
+            ('bilateral_color_blur', got_b, ref_b, 1e-6),
+            ('bilateral_slice', got_l, ref_l, 1e-6)):
+        check(got.shape == ref.shape and torch.isfinite(got).all(),
+              f'{name} {label}: shape {tuple(got.shape)} or non-finite')
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        print(f'[kernels] {name} {label}: max_abs_err {err:.3e} '
+              f'max_rel_err {err / scale:.3e} (tolerance {tol:g} of '
+              f'max |plain| {scale:.4g})')
+        check(err <= tol * scale, f'{name} {label} disagrees with plain')
+        errs[name] = err
+    return errs, ref_s, ref_b, g_sp, ref_l
+
+
 def phase_kernels(torch):
-    """Each kernel against its plain version on production inputs."""
+    """The v2 route's kernels against their plain versions at the shapes
+    of the main path (with times, bounds and library calls at C=21) and
+    of SEC prediction's default route."""
     from wsss_tpu_torch.kernels import bilateral as K
     from wsss_tpu_torch.ops.crf import mxu_grid
     from wsss_tpu_torch.ops.crf.meanfield import MXU_CELL_MULT
-    from wsss_tpu_torch.ops.filters import resize_bilinear
     from wsss_tpu_torch.utils.device import resolve_device
     dev = resolve_device('cuda')
     gen = torch.Generator(device=dev).manual_seed(0)
-    imgs = torch.rand((BATCH, SIZE, SIZE, 3), generator=gen,
-                      device=dev) * 255
-    guide = resize_bilinear(imgs, (GUIDE, GUIDE))
+    guide = path_guide(torch, 'hsn', gen)
     geo = mxu_grid.MXUBilateralGrid(guide, 8.0, 13.0, 21,
                                     cell_mult=MXU_CELL_MULT)
     t, gy, gx, gc = geo.t, geo.gy, geo.gx, geo.gc
@@ -102,34 +190,12 @@ def phase_kernels(torch):
     for c in (21, 1):
         x = (torch.rand((BATCH, GUIDE, GUIDE, c), generator=gen, device=dev)
              if c > 1 else torch.ones((BATCH, GUIDE, GUIDE, 1), device=dev))
-        ref_s = K.bilateral_splat_plain(x, cell, t, gy, gx, gc)
-        got_s = K.bilateral_splat(x, cell, t, gy, gx, gc)
-        ref_b = K.bilateral_color_blur_plain(ref_s, geo.taps)
-        got_b = K.bilateral_color_blur(ref_s, geo.taps)
-        g_sp = torch.matmul(geo.blur_sp, ref_b.reshape(BATCH, gy * gx, -1)
-                            ).view(ref_b.shape)
-        ref_l = K.bilateral_slice_plain(g_sp, cell, t)
-        got_l = K.bilateral_slice(g_sp, cell, t)
-        torch.cuda.synchronize()
-        # splat: atomics sum in a run-dependent order -> f32 rounding;
-        # blur and slice use the plain version's operation order with
-        # round-to-nearest intrinsics -> bit-equal expected
-        for name, got, ref, tol in (
-                ('bilateral_splat', got_s, ref_s, 1e-5),
-                ('bilateral_color_blur', got_b, ref_b, 1e-6),
-                ('bilateral_slice', got_l, ref_l, 1e-6)):
-            check(got.shape == ref.shape and torch.isfinite(got).all(),
-                  f'{name} C={c}: shape {tuple(got.shape)} or non-finite')
-            err = float((got - ref).abs().max())
-            scale = float(ref.abs().max())
-            print(f'[kernels] {name} C={c}: max_abs_err {err:.3e} '
-                  f'max_rel_err {err / scale:.3e} (tolerance {tol:g} of '
-                  f'max |plain| {scale:.4g})')
-            check(err <= tol * scale, f'{name} C={c} disagrees with plain')
-            if c == 21:
-                results[name] = {'max_abs_err': err}
+        errs, ref_s, ref_b, g_sp, ref_l = hold_v2_kernels(
+            torch, K, geo, x, f'B={BATCH} {GUIDE}x{GUIDE} C={c}')
         if c != 21:
             continue
+        results = {name: {'max_abs_err': err, 'shape': 'hsn_c21',
+                          'cases': {}} for name, err in errs.items()}
         gbytes = ref_s.numel() * 4
 
         # timings (C=21, the message filter that runs every iteration)
@@ -201,7 +267,257 @@ def phase_kernels(torch):
         print(f'[kernels] {name} C=21: {r["ms"]:.4f} ms, plain '
               f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} ms, '
               f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]})')
+
+    # the shapes SEC prediction's default route gives the same kernels
+    guide = path_guide(torch, 'sec', gen)
+    geo = mxu_grid.MXUBilateralGrid(guide, 8.0, 13.0, 21,
+                                    cell_mult=MXU_CELL_MULT)
+    t, gy, gx, gc, cell = geo.t, geo.gy, geo.gx, geo.gc, geo.cell
+    check(geo.v2 and (t, gy, gx, gc) == (8, 6, 8, 16),
+          f'SEC geometry changed: {(geo.v2, t, gy, gx, gc)}')
+    for c in (21, 1):
+        x = torch.rand(tuple(guide.shape[:3]) + (c,), generator=gen,
+                       device=dev)
+        label = f'B=1 {guide.shape[1]}x{guide.shape[2]} C={c}'
+        errs, ref_s, _, g_sp, ref_l = hold_v2_kernels(torch, K, geo, x,
+                                                      label)
+        gbytes = ref_s.numel() * 4
+        rows4 = torch.cat([r.reshape(-1) for r, _ in
+                           K.corner_rows(cell, t, gy, gx, gc ** 3)])
+        touched = int(torch.unique(rows4).numel())
+        case = {
+            'bilateral_splat': (
+                lambda: K.bilateral_splat(x, cell, t, gy, gx, gc),
+                bound_ms(x.numel() * 4 + cell.numel() * 4 + gbytes,
+                         4 * 3 * x.numel())),
+            'bilateral_color_blur': (
+                lambda: K.bilateral_color_blur(ref_s, geo.taps),
+                bound_ms(2 * gbytes, 3 * 9 * ref_s.numel())),
+            'bilateral_slice': (
+                lambda: K.bilateral_slice(g_sp, cell, t),
+                bound_ms(touched * c * 4 + cell.numel() * 4
+                         + ref_l.numel() * 4, 7 * ref_l.numel()))}
+        for name, (fn, (bb, bf)) in case.items():
+            ms = cuda_ms(torch, fn)
+            results[name]['cases'][f'sec_v2_c{c}'] = dict(
+                max_abs_err=errs[name], ms=ms, bound_ms=bb, bound_by=bf)
+            print(f'[kernels] {name} {label}: {ms:.4f} ms, bound '
+                  f'{bb:.4f} ms ({bf})')
     return results
+
+
+def hold_v1_kernels(torch, K, geo, x, label):
+    """The v1 route's four kernels and the slice on one geometry: each
+    bit-equal to its plain version (the tile splat also on two runs),
+    timed beside its bound, its plain version and, where one PyTorch call
+    computes the same function, that call.  Returns {name: numbers}."""
+    dev = x.device
+    b, c = x.shape[0], x.shape[-1]
+    t, gy, gx, gc, cell, taps = (geo.t, geo.gy, geo.gx, geo.gc, geo.cell,
+                                 geo.taps)
+    part = K.bilateral_splat_tiles(x, cell, t, gc)
+    check(torch.equal(part, K.bilateral_splat_tiles(x, cell, t, gc)),
+          f'bilateral_splat_tiles {label}: two runs differ')
+    fold = K.bilateral_fold(part)
+    fblur = K.bilateral_fold_blur(part, taps)
+    cblur = K.bilateral_cube_blur(fold, taps)
+    g_sp = torch.matmul(geo.blur_sp, fblur.reshape(b, gy * gx, -1)
+                        ).view(fblur.shape)
+    sliced = K.bilateral_slice(g_sp, cell, t)
+    torch.cuda.synchronize()
+    pairs = (
+        ('bilateral_splat_tiles', part,
+         K.bilateral_splat_tiles_plain(x, cell, t, gc)),
+        ('bilateral_fold', fold, K.bilateral_fold_plain(part)),
+        ('bilateral_fold_blur', fblur,
+         K.bilateral_fold_blur_plain(part, taps)),
+        ('bilateral_cube_blur', cblur,
+         K.bilateral_cube_blur_plain(fold, taps)),
+        ('bilateral_slice', sliced,
+         K.bilateral_slice_plain(g_sp, cell, t)))
+    res = {}
+    for name, got, ref in pairs:
+        check(got.shape == ref.shape and torch.isfinite(got).all(),
+              f'{name} {label}: shape {tuple(got.shape)} or non-finite')
+        err = float((got - ref).abs().max())
+        print(f'[kernels] {name} {label}: max_abs_err {err:.3e} '
+              f'(bit-equal expected; max |plain| '
+              f'{float(ref.abs().max()):.4g})')
+        check(torch.equal(got, ref),
+              f'{name} {label} is not bit-equal to its plain version')
+        res[name] = {'max_abs_err': err}
+    del pairs, got, ref
+    pbytes, gbytes = part.numel() * 4, fold.numel() * 4
+
+    # yardstick of the tile splat: one index_add_ into the partial
+    # layout, rows (tile*4 + q)*gc^3 + cell
+    gc3 = gc ** 3
+    corner = K.corner_rows(cell, t, gy - 1, gx - 1, gc3, own_tile=True)
+    rows4 = torch.cat([((r - cell) * 4 + q * gc3 + cell).reshape(-1)
+                       for q, (r, _) in enumerate(corner)])
+    vals4 = torch.cat([(w[..., None] * x).reshape(-1, c)
+                       for _, w in corner])
+
+    def tiles_lib():
+        return torch.zeros((part.numel() // c, c), device=dev
+                           ).index_add_(0, rows4, vals4)
+    lib_err = float((tiles_lib().view(part.shape) - part).abs().max())
+    check(lib_err <= 1e-5 * float(part.abs().max()),
+          f'index_add_ yardstick computes another function ({lib_err})')
+    bb, bf = bound_ms(pbytes + x.numel() * 4 + cell.numel() * 4,
+                      4 * 3 * x.numel())
+    res['bilateral_splat_tiles'].update(
+        ms=cuda_ms(torch, lambda: K.bilateral_splat_tiles(x, cell, t, gc)),
+        plain_ms=cuda_ms(torch, lambda: K.bilateral_splat_tiles_plain(
+            x, cell, t, gc), reps=5, warmup=1),
+        library_ms=cuda_ms(torch, tiles_lib), bound_ms=bb, bound_by=bf)
+    del rows4, vals4, corner
+
+    # yardstick of the fold: F.fold (col2im, 2x2 blocks at stride 1) adds
+    # block (ty, tx)'s entry (by, bx) into node (ty + by, tx + bx).  It
+    # wants [B, m*4 + q, tile]; that copy of the partials is made outside
+    # the timed call and the result is left in F.fold's [B, m, gy, gx]
+    m = gc3 * c
+    cols = part.view(b, (gy - 1) * (gx - 1), 4, m).permute(0, 3, 2, 1)
+    cols = cols.reshape(b, m * 4, -1)
+
+    def fold_lib():
+        return torch.nn.functional.fold(cols, (gy, gx), kernel_size=2)
+    lib_err = float((fold_lib().permute(0, 2, 3, 1).reshape(fold.shape)
+                     - fold).abs().max())
+    check(lib_err <= 1e-5 * float(fold.abs().max()),
+          f'F.fold yardstick computes another function ({lib_err})')
+    bb, bf = bound_ms(pbytes + gbytes, 3 * fold.numel())
+    res['bilateral_fold'].update(
+        ms=cuda_ms(torch, lambda: K.bilateral_fold(part)),
+        plain_ms=cuda_ms(torch, lambda: K.bilateral_fold_plain(part),
+                         reps=10),
+        library_ms=cuda_ms(torch, fold_lib, reps=10), bound_ms=bb,
+        bound_by=bf)
+    del cols
+    # fold + blur is two PyTorch calls (F.fold, conv3d): no single one
+    bb, bf = bound_ms(pbytes + gbytes, (3 + 27) * fold.numel())
+    res['bilateral_fold_blur'].update(
+        ms=cuda_ms(torch, lambda: K.bilateral_fold_blur(part, taps)),
+        plain_ms=cuda_ms(torch, lambda: K.bilateral_fold_blur_plain(
+            part, taps), reps=10),
+        library_ms=None, bound_ms=bb, bound_by=bf)
+
+    w3 = torch.tensor(taps[::-1] + taps[1:], device=dev)
+    w3 = (w3[:, None, None] * w3[None, :, None] * w3[None, None, :])
+    w3 = w3.expand(c, 1, 5, 5, 5).contiguous()
+    cl3 = fold.view(b * gy * gx, gc, gc, gc, c).permute(0, 4, 1, 2, 3)
+
+    def blur_lib():
+        return torch.nn.functional.conv3d(cl3, w3, padding=2, groups=c)
+    lib_err = float((blur_lib().permute(0, 2, 3, 4, 1).reshape(
+        cblur.shape) - cblur).abs().max())
+    check(lib_err <= 1e-4 * float(cblur.abs().max()),
+          f'conv3d yardstick computes another function ({lib_err})')
+    bb, bf = bound_ms(2 * gbytes, 27 * fold.numel())
+    res['bilateral_cube_blur'].update(
+        ms=cuda_ms(torch, lambda: K.bilateral_cube_blur(fold, taps)),
+        plain_ms=cuda_ms(torch, lambda: K.bilateral_cube_blur_plain(
+            fold, taps), reps=10),
+        library_ms=cuda_ms(torch, blur_lib, reps=5, warmup=1),
+        bound_ms=bb, bound_by=bf,
+        three_pass_ms=cuda_ms(
+            torch, lambda: K.bilateral_color_blur(fold, taps)))
+    rows4 = torch.cat([r.reshape(-1) for r, _ in
+                       K.corner_rows(cell, t, gy, gx, gc3)])
+    bb, bf = bound_ms(int(torch.unique(rows4).numel()) * c * 4
+                      + cell.numel() * 4 + sliced.numel() * 4,
+                      7 * sliced.numel())
+    res['bilateral_slice'].update(
+        ms=cuda_ms(torch, lambda: K.bilateral_slice(g_sp, cell, t)),
+        bound_ms=bb, bound_by=bf)
+    for name, r in res.items():
+        lib = ('not timed' if 'library_ms' not in r
+               else 'no single call' if r['library_ms'] is None
+               else f'{r["library_ms"]:.4f} ms')
+        plain = (f'{r["plain_ms"]:.4f} ms' if 'plain_ms' in r
+                 else 'not timed')
+        print(f'[kernels] {name} {label}: {r["ms"]:.4f} ms, plain {plain}, '
+              f'library {lib}, bound {r["bound_ms"]:.4f} ms '
+              f'({r["bound_by"]})')
+    print(f'[kernels] colour blur {label}: one pass (bilateral_cube_blur) '
+          f'{res["bilateral_cube_blur"]["ms"]:.4f} ms, three passes '
+          f'(bilateral_color_blur) '
+          f'{res["bilateral_cube_blur"]["three_pass_ms"]:.4f} ms')
+    return res
+
+
+# (geometry, message channels, case prefix); the batch-8 cases are an
+# extra that no path of this script runs on the v1 route
+V1_CASES = (('sec', 21, 'sec'), ('wide', 40, 'wide'),
+            ('hsn', 21, 'b8'), ('hsn', 40, 'b8'))
+# where each v1 kernel's headline numbers come from: the path that
+# launches it most, at the message filter's width
+V1_HEADLINE = {'bilateral_splat_tiles': 'sec_c21',
+               'bilateral_fold_blur': 'sec_c21',
+               'bilateral_fold': 'wide_c40',
+               'bilateral_cube_blur': 'wide_c40'}
+
+
+def phase_kernels_v1(torch, results):
+    """The v1 route's kernels and the slice at the shapes of the SEC v1
+    path and the wide path (message grid and C=1 normalizer grid), then
+    at batch 8 and on a cube too large for one block.  Adds every case to
+    results[name]['cases'] and the new kernels' headline numbers (the case
+    of V1_HEADLINE) to results[name]."""
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.ops.crf import mxu_grid
+    from wsss_tpu_torch.ops.crf.meanfield import MXU_CELL_MULT
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(2)
+    flag = mxu_grid._V2_DISABLED
+    for path, c, prefix in V1_CASES:
+        guide = path_guide(torch, path, gen)
+        # SEC prediction reaches the v1 route through the switch; more
+        # than 32 classes reach it without
+        mxu_grid._V2_DISABLED = flag or path == 'sec'
+        try:
+            geo = mxu_grid.MXUBilateralGrid(guide, 8.0, 13.0, c,
+                                            cell_mult=MXU_CELL_MULT)
+            geo1 = mxu_grid.MXUBilateralGrid(guide, 8.0, 13.0, 1,
+                                             cell_mult=MXU_CELL_MULT,
+                                             share_from=geo)
+        finally:
+            mxu_grid._V2_DISABLED = flag
+        want_v2 = path == 'hsn' and c == 21
+        check((geo.v2, geo.fuse_combine_blur) == (want_v2, c == 21)
+              and (geo1.v2, geo1.fuse_combine_blur) == (want_v2, True),
+              f'routing of {path} C={c} changed: v2 {geo.v2}, fused '
+              f'{geo.fuse_combine_blur}')
+        b, gh, gw = guide.shape[:3]
+        for g, cc in ((geo, c),) + (((geo1, 1),) if prefix != 'b8' else ()):
+            x = torch.rand((b, gh, gw, cc), generator=gen, device=dev)
+            res = hold_v1_kernels(torch, K, g, x,
+                                  f'B={b} {gh}x{gw} C={cc}')
+            for name, r in res.items():
+                results.setdefault(name, {'cases': {}})['cases'][
+                    f'{prefix}_c{cc}'] = r
+            del x, res
+            torch.cuda.empty_cache()
+    for name, case in V1_HEADLINE.items():
+        results[name].update(results[name]['cases'][case], shape=case)
+
+    # a cube no block can hold: srgb 5 -> gc 52, 562 KB for one channel
+    big = mxu_grid.MXUBilateralGrid(guide[:1], 8.0, 5.0, 1)
+    nc, planes = K.cube_tiling(big.gc, 1)
+    check(big.gc == 52 and not big.v2 and not big.fuse_combine_blur
+          and planes < big.gc, f'large-cube case changed: gc {big.gc}')
+    grid = K.bilateral_fold(K.bilateral_splat_tiles(
+        torch.ones((1, GUIDE, GUIDE, 1), device=dev), big.cell, big.t,
+        big.gc))
+    got = K.bilateral_cube_blur(grid, big.taps)
+    check(torch.equal(got, K.bilateral_cube_blur_plain(grid, big.taps)),
+          'bilateral_cube_blur gc=52 is not bit-equal to its plain version')
+    ms = cuda_ms(torch, lambda: K.bilateral_cube_blur(grid, big.taps))
+    bb, _ = bound_ms(2 * grid.numel() * 4, 27 * grid.numel())
+    print(f'[kernels] bilateral_cube_blur gc=52 C=1 B=1 ({planes} of 52 '
+          f'cr-planes a block): bit-equal, {ms:.4f} ms, bound {bb:.4f} ms')
+    results['bilateral_cube_blur']['gc52_ms'] = ms
 
 
 def phase_main(torch):
@@ -219,7 +535,7 @@ def phase_main(torch):
     print(f'[main] handles built in {time.perf_counter() - t0:.2f} s; '
           f'CRF {seg.cfg}')
     gen = torch.Generator(device='cuda').manual_seed(1)
-    n_batches = 3
+    n_batches = 2
     batches = [torch.randint(0, 256, (BATCH, SIZE, SIZE, 3),
                              dtype=torch.uint8, generator=gen,
                              device='cuda') for _ in range(n_batches)]
@@ -236,8 +552,7 @@ def phase_main(torch):
           f'{BATCH * n_batches / dt:.2f} img/s '
           f'({1e3 * dt / n_batches:.2f} ms/batch)')
     print(f'[main] launches in the timed run: {launches}')
-    for name, n in launches.items():
-        check(n > 0, f'{name} was not launched on the main path')
+    check_launches(launches, V2_KERNELS, 'the main path')
 
     imgs = batches[0].to(torch.float32)
     cam_ms = cuda_ms(torch, lambda: seg.probs(imgs), reps=5, warmup=1)
@@ -266,35 +581,190 @@ def phase_main(torch):
     return launches
 
 
+def phase_sec(torch):
+    """SEC prediction at full width on both routes of the grid."""
+    from wsss_tpu_torch.cli.sec_dsrg import predict_crf_config, predict_image
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.methods.gradcam_cues import _normalizer
+    from wsss_tpu_torch.ops.crf import mxu_grid
+    from wsss_tpu_torch.ops.crf.meanfield import mean_field
+    from wsss_tpu_torch.ops.filters import resize_bilinear
+    from wsss_tpu_torch.train.sec_dsrg import SECDSRGPredictor
+    spec = registry.get('VOC2012')
+    n_cls, hw = spec.n_seg_classes, (375, 500)
+    t0 = time.perf_counter()
+    pred = SECDSRGPredictor.random('SEC', n_cls, seed=0)
+    torch.cuda.synchronize()
+    cfg = predict_crf_config('VOC2012', 'SEC')
+    print(f'[sec] SECNet built in {time.perf_counter() - t0:.2f} s; '
+          f'CRF {cfg}')
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    images = [torch.randint(0, 256, hw + (3,), dtype=torch.uint8,
+                            generator=gen, device='cuda') for _ in range(4)]
+
+    def run(path, expected):
+        predict_image(pred, spec, 'SEC', images[0], hw, size=SIZE)  # warm-up
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        labels = [predict_image(pred, spec, 'SEC', im, hw, size=SIZE)
+                  for im in images]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        print(f'[sec] {path}: {len(images)} images of {hw[0]}x{hw[1]} at '
+              f'{SIZE}: {len(images) / dt:.2f} img/s '
+              f'({1e3 * dt / len(images):.2f} ms/img); launches {launches}')
+        check_launches(launches, expected, path)
+        for lab in labels:
+            check(tuple(lab.shape) == hw and lab.dtype == torch.int32,
+                  f'labels {tuple(lab.shape)} {lab.dtype}')
+            check(int(lab.min()) >= 0 and int(lab.max()) < n_cls,
+                  'label out of range')
+        return torch.stack(labels), launches
+
+    def stage_ms():
+        native = images[0].to(torch.float32)
+        norm = _normalizer(spec.norm_sec, pred.device)
+        net_in = norm(resize_bilinear(native, (SIZE, SIZE))[None])
+        fcn = cuda_ms(torch, lambda: pred.predict_logits(net_in), reps=5,
+                      warmup=1)
+        probs = torch.softmax(resize_bilinear(
+            pred.predict_logits(net_in), hw), dim=-1)
+        crf = cuda_ms(torch, lambda: mean_field(probs, native[None], cfg),
+                      reps=5, warmup=1)
+        return fcn, crf, probs, native[None]
+
+    labels_v2, launches_v2 = run('the SEC path, default route', V2_KERNELS)
+    fcn_ms, crf_ms, probs, guide = stage_ms()
+    q_v2 = mean_field(probs, guide, cfg)
+    print(f'[sec] default route: FCN {fcn_ms:.2f} ms, CRF {crf_ms:.2f} ms '
+          f'per image')
+    hist = torch.bincount(labels_v2[0].reshape(-1).long(),
+                          minlength=n_cls).tolist()
+    print(f'[sec] label histogram of image 0: {hist}')
+
+    flag = mxu_grid._V2_DISABLED
+    mxu_grid._V2_DISABLED = True        # what WSSS_TPU_MXU_V1=1 sets
+    try:
+        labels_v1, launches_v1 = run('the SEC path, v1 route', V1_FUSED)
+        crf_v1_ms = stage_ms()[1]
+        q_v1 = mean_field(probs, guide, cfg)
+        with K.plain_versions():
+            q_plain = mean_field(probs, guide, cfg)
+            labels_plain = torch.stack([
+                predict_image(pred, spec, 'SEC', im, hw, size=SIZE)
+                for im in images])
+    finally:
+        mxu_grid._V2_DISABLED = flag
+    print(f'[sec] v1 route: CRF {crf_v1_ms:.2f} ms per image')
+    routes = float((labels_v1 == labels_v2).float().mean())
+    plain = float((labels_v1 == labels_plain).float().mean())
+    print(f'[sec] label agreement v1 route vs default route: {routes:.6f}; '
+          f'v1 kernels vs plain versions: {plain:.6f}')
+    check(routes >= 0.999, f'v1 and default routes agree {routes} < 0.999')
+    check(plain >= 0.9999, f'v1 kernels vs plain agree {plain} < 0.9999')
+    # random weights give few labels, so hold the posteriors too
+    d_routes = float((q_v1 - q_v2).abs().max())
+    d_plain = float((q_v1 - q_plain).abs().max())
+    print(f'[sec] image 0 posterior: max |dQ| v1 vs default route '
+          f'{d_routes:.3e} (tolerance 1e-4: atomic order), v1 kernels vs '
+          f'plain versions {d_plain:.3e} (0 expected)')
+    check(torch.isfinite(q_v1).all() and d_routes <= 1e-4 and d_plain <= 1e-6,
+          'SEC posteriors of the routes disagree')
+
+    dsrg = SECDSRGPredictor.random('DSRG', n_cls, seed=1)
+    lab = predict_image(dsrg, spec, 'DSRG', images[1], hw, size=SIZE)
+    check(tuple(lab.shape) == hw and lab.dtype == torch.int32
+          and int(lab.min()) >= 0 and int(lab.max()) < n_cls,
+          'DSRG labels out of shape or range')
+    print(f'[sec] DSRGNet image: {int(lab.unique().numel())} labels present')
+    return {'sec': launches_v2, 'sec_v1': launches_v1}
+
+
+def phase_wide(torch):
+    """mean_field at 40 classes: the v1 route with no switch."""
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.ops.crf import config as crf_config
+    from wsss_tpu_torch.ops.crf.meanfield import mean_field
+    cfg = crf_config.SEC_TEST['VOC2012']
+    gen = torch.Generator(device='cuda').manual_seed(4)
+    probs = torch.softmax(2 * torch.randn((2, SIZE, SIZE, 40), generator=gen,
+                                          device='cuda'), dim=-1)
+    imgs = torch.randint(0, 256, (2, SIZE, SIZE, 3), dtype=torch.uint8,
+                         generator=gen, device='cuda').to(torch.float32)
+    mean_field(probs, imgs, cfg)                          # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    q = mean_field(probs, imgs, cfg)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    print(f'[wide] mean_field C=40, B=2 at {SIZE}^2, {cfg}: launches '
+          f'{launches}')
+    check_launches(launches, V1_UNFUSED + ('bilateral_fold_blur',),
+                   'the wide path')
+    check(torch.isfinite(q).all() and q.shape == probs.shape, 'Q not finite')
+    check(float((q.sum(-1) - 1).abs().max()) < 1e-4, 'Q rows do not sum to 1')
+    ms = cuda_ms(torch, lambda: mean_field(probs, imgs, cfg), reps=5,
+                 warmup=1)
+    with K.plain_versions():
+        q_plain = mean_field(probs, imgs, cfg)
+    agree = float((q.argmax(-1) == q_plain.argmax(-1)).float().mean())
+    print(f'[wide] CRF {ms:.2f} ms per batch of 2; argmax agreement kernels '
+          f'vs plain versions: {agree:.6f}; max |dQ| '
+          f'{float((q - q_plain).abs().max()):.3e}')
+    check(agree >= 0.9999, f'wide path argmax agrees {agree} < 0.9999')
+    return {'wide': launches}
+
+
 def main():
     import torch
+    t_start = time.perf_counter()
     smi = phase_device(torch)
     phase_build()
     results = phase_kernels(torch)
-    launches = phase_main(torch)
+    phase_kernels_v1(torch, results)
+    print(f'[time] kernels done at {time.perf_counter() - t_start:.0f} s')
+    paths = {'hsn': phase_main(torch)}
+    print(f'[time] main path done at {time.perf_counter() - t_start:.0f} s')
+    paths.update(phase_sec(torch))
+    paths.update(phase_wide(torch))
+    print(f'[time] all paths done at {time.perf_counter() - t_start:.0f} s')
     from wsss_tpu_torch.kernels import build
     sources = build.sources()
+    at = 'wsss_tpu/ops/crf/mxu_grid.py:'
     replaces = {
-        'bilateral_splat': 'wsss_tpu/ops/crf/mxu_grid.py:289',
-        'bilateral_color_blur': 'wsss_tpu/ops/crf/mxu_grid.py:356',
-        'bilateral_slice': 'wsss_tpu/ops/crf/mxu_grid.py:448'}
+        'bilateral_splat': at + '289',
+        'bilateral_color_blur': at + '356',
+        'bilateral_slice': at + '448 (also via _slice :1090)',
+        'bilateral_splat_tiles': at + '226',
+        'bilateral_fold': at + '414',
+        'bilateral_fold_blur': at + '537',
+        'bilateral_cube_blur': at + '515'}
+    check(set(results) == set(sources) == set(replaces),
+          f'kernels measured {sorted(results)} vs built {sorted(sources)}')
     kernels = []
     for name, r in results.items():
+        by_path = {path: n[name] for path, n in paths.items()}
+        check(sum(by_path.values()) > 0, f'{name} ran on no path')
         kernels.append(dict(
             name=name, route='cuda',
             source=f'wsss_tpu_torch/kernels/csrc/{sources[name].name}',
-            replaces=replaces[name], launches=launches[name],
+            replaces=replaces[name], launches=sum(by_path.values()),
             max_abs_err=r['max_abs_err'], ms=r['ms'],
             plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
-            bound_by=r['bound_by'], library_ms=r['library_ms']))
-    print('kernels launched on the main path: '
+            bound_by=r['bound_by'], library_ms=r['library_ms'],
+            launches_by_path=by_path,
+            **{k: r[k] for k in ('shape', 'cases', 'three_pass_ms',
+                                 'gc52_ms') if k in r}))
+    print('kernels launched on the paths: '
           + ', '.join(k['name'] for k in kernels))
     print(f'[result] card: {smi}')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
-
 
 if __name__ == '__main__':
     sys.exit(main())

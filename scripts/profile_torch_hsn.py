@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's main path goes, on one CUDA card.
+"""Where the time of the PyTorch port's paths goes, on one CUDA card.
 
     python3 scripts/profile_torch_hsn.py
 
 Builds the main path of chip_smoke.py (HSNSegmenter, VOC2012, random-init
 VGG16 fg and bg, production CRF config) and, for the CAM stage, the CRF
 stage and the whole segment_batch, runs a torch.profiler window of
-ITERS calls at batch 8, 321^2.  Prints per stage: host wall ms per call, device kernel ms
+ITERS calls at batch 8, 321^2.  Then the SEC prediction path of
+chip_smoke.py (SECNet, one 375x500 image at 321): the FCN, the test CRF
+on the grid's default route and on its v1 route, and the whole
+predict_image.  Prints per stage: host wall ms per call, device kernel ms
 per call, the device's idle share of the window, the device time by
 kernel group and the top kernels.  The idle share is 1 - (union of the
 kernels' intervals) / window, since summed kernel time can exceed the
@@ -96,6 +99,49 @@ def report(stage, wall_ms, busy_ms, kernels, top):
             'idle_share': idle, 'groups_ms': groups}
 
 
+def profile_sec(torch, gen):
+    """The SEC prediction path, one 375x500 image at a time."""
+    from wsss_tpu_torch.cli.sec_dsrg import predict_crf_config, predict_image
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.methods.gradcam_cues import _normalizer
+    from wsss_tpu_torch.ops.crf import mxu_grid
+    from wsss_tpu_torch.ops.crf.meanfield import mean_field
+    from wsss_tpu_torch.ops.filters import resize_bilinear
+    from wsss_tpu_torch.train.sec_dsrg import SECDSRGPredictor
+    spec = registry.get('VOC2012')
+    hw = (375, 500)
+    pred = SECDSRGPredictor.random('SEC', spec.n_seg_classes, seed=0)
+    cfg = predict_crf_config('VOC2012', 'SEC')
+    raw = torch.randint(0, 256, hw + (3,), dtype=torch.uint8, generator=gen,
+                        device='cuda')
+    native = raw.to(torch.float32)
+    net_in = _normalizer(spec.norm_sec, pred.device)(
+        resize_bilinear(native, (SIZE, SIZE))[None])
+    probs = torch.softmax(resize_bilinear(pred.predict_logits(net_in), hw),
+                          dim=-1)
+
+    def crf_v1():
+        flag, mxu_grid._V2_DISABLED = mxu_grid._V2_DISABLED, True
+        try:
+            return mean_field(probs, native[None], cfg)
+        finally:
+            mxu_grid._V2_DISABLED = flag
+    out = {}
+    for stage, fn in (
+            ('sec_fcn', lambda: pred.predict_logits(net_in)),
+            ('sec_crf', lambda: mean_field(probs, native[None], cfg)),
+            ('sec_crf_v1', crf_v1),
+            ('sec_predict_image', lambda: predict_image(
+                pred, spec, 'SEC', raw, hw, size=SIZE))):
+        _, wall_ms, busy_ms, kernels = profile_window(torch, fn, ITERS)
+        if not kernels:
+            raise SystemExit(f'{stage}: the profiler recorded no device '
+                             'time')
+        out[stage] = report(stage, wall_ms, busy_ms, kernels, TOP)
+    out['sec_img_per_s'] = 1e3 / out['sec_predict_image']['wall_ms']
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -134,6 +180,7 @@ def main():
     prof.export_chrome_trace(str(trace))
     print(f'[trace] {trace.relative_to(ROOT)}')
     out['img_per_s'] = BATCH / (out['segment_batch']['wall_ms'] / 1e3)
+    out.update(profile_sec(torch, gen))
     print(json.dumps(out))
 
 

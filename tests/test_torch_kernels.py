@@ -134,6 +134,57 @@ def test_kernels_match_plain_on_card(cuda_device, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('c', [21, 40, 1])
+def test_v1_kernels_match_plain_on_card(cuda_device, c):
+    """Production colour geometry (gc 16, t 8) on a ragged 60x52 guide,
+    batch 2: the tile splat, fold, fused fold+blur and cube blur sum in
+    a fixed order and equal their plain versions bit for bit; so does a
+    whole filter on either v1 route."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    imgs = torch.rand((2, 60, 52, 3), generator=gen,
+                      device=cuda_device) * 255
+    g = mxu_grid.MXUBilateralGrid(imgs, 8.0, 13.0, c, cell_mult=1.35)
+    x = torch.rand((2, 60, 52, c), generator=gen, device=cuda_device)
+    before = dict(K.LAUNCHES)
+    part = K.bilateral_splat_tiles(x, g.cell, g.t, g.gc)
+    assert torch.equal(part, K.bilateral_splat_tiles(x, g.cell, g.t, g.gc))
+    assert torch.equal(part, K.bilateral_splat_tiles_plain(x, g.cell, g.t,
+                                                           g.gc))
+    grid = K.bilateral_fold(part)
+    assert torch.equal(grid, K.bilateral_fold_plain(part))
+    assert torch.equal(K.bilateral_fold_blur(part, g.taps),
+                       K.bilateral_fold_blur_plain(part, g.taps))
+    assert torch.equal(K.bilateral_cube_blur(grid, g.taps),
+                       K.bilateral_cube_blur_plain(grid, g.taps))
+    for name, n in (('bilateral_splat_tiles', 2), ('bilateral_fold', 1),
+                    ('bilateral_fold_blur', 1), ('bilateral_cube_blur', 1)):
+        assert K.LAUNCHES[name] == before[name] + n, name
+    g.v2 = False
+    for fused in (True, False):
+        g.fuse_combine_blur = fused
+        with K.plain_versions():
+            plain = g.filter(x)
+        assert torch.equal(g.filter(x), plain), fused
+
+
+@pytest.mark.cuda
+def test_cube_blur_cuts_a_large_cube_on_card(cuda_device):
+    """gc 52 (srgb 5): one channel's cube is 562 KB, more than a block's
+    shared memory, so the kernel cuts it along cr; still bit-equal."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    grid = torch.rand((1, 2, 2, 52, 52, 52, 1), generator=gen,
+                      device=cuda_device)
+    taps = mxu_grid._blur_taps(0.913)[2:]
+    assert K.cube_tiling(52, 1) == (1, 8)
+    assert torch.equal(K.bilateral_cube_blur(grid, taps),
+                       K.bilateral_cube_blur_plain(grid, taps))
+    part = torch.rand((1, 1, 1, 4, 52, 52, 52, 1), generator=gen,
+                      device=cuda_device)
+    assert torch.equal(K.bilateral_fold_blur(part, taps),
+                       K.bilateral_fold_blur_plain(part, taps))
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_check_their_inputs(cuda_device):
     x = torch.ones((1, 8, 8, 2), device=cuda_device)
     cell = torch.zeros((1, 8, 8), dtype=torch.int32, device=cuda_device)
@@ -143,3 +194,15 @@ def test_kernel_wrappers_check_their_inputs(cuda_device):
         K.bilateral_splat(x.transpose(1, 2), cell, 8, 2, 2, 3)
     with pytest.raises(ValueError, match='does not fit'):
         K.bilateral_splat(x, cell, 8, 3, 2, 3)
+    with pytest.raises(TypeError):
+        K.bilateral_splat_tiles(x, cell.long(), 8, 3)
+    with pytest.raises(ValueError, match='want 8 dims'):
+        K.bilateral_fold(torch.ones((1, 1, 1, 4, 27, 2), device=cuda_device))
+    with pytest.raises(ValueError, match='partials'):
+        K.bilateral_fold_blur(
+            torch.ones((1, 1, 1, 3, 3, 3, 3, 2), device=cuda_device),
+            (1.0, 0.5, 0.1))
+    with pytest.raises(ValueError, match='colour axes'):
+        K.bilateral_cube_blur(
+            torch.ones((1, 2, 2, 3, 3, 4, 2), device=cuda_device),
+            (1.0, 0.5, 0.1))

@@ -52,7 +52,9 @@ def test_kernels_are_not_built_at_import():
     from wsss_tpu_torch.kernels import bilateral, build
     assert not build._LIBS
     assert set(bilateral.LAUNCHES) == {
-        'bilateral_splat', 'bilateral_color_blur', 'bilateral_slice'}
+        'bilateral_splat', 'bilateral_color_blur', 'bilateral_slice',
+        'bilateral_splat_tiles', 'bilateral_fold', 'bilateral_fold_blur',
+        'bilateral_cube_blur'}
     assert sorted(build.sources()) == sorted(bilateral.LAUNCHES)
 
 
@@ -70,6 +72,9 @@ def test_entry_points_default_to_cuda():
     fg = _ClassifierHandle.random('M7', 6, 16, device='cpu')
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         HSNSegmenter(registry.get('DeepGlobe'), fg, drop_last_class=True)
+    from wsss_tpu_torch.train.sec_dsrg import SECDSRGPredictor
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        SECDSRGPredictor('SEC', 3)
 
 
 def test_kernel_wrappers_take_cpu_or_cuda_only():

@@ -1,11 +1,16 @@
-"""Carry the JAX package's classifier weights into the port's modules.
+"""Carry the JAX package's weights into the port's modules.
 
 Input: the flax variables of a ``VGG16Classifier`` or ``M7Classifier``
-as nested dicts of **numpy** arrays (``{'params': ..., 'batch_stats':
-...}``).  This module never touches jax: the caller converts the leaves
+(``{'params': ..., 'batch_stats': ...}``) or the ``params`` tree of a
+``SECNet`` or ``DSRGNet``, as nested dicts of **numpy** arrays.  This
+module never touches jax: the caller converts the leaves
 (``jax.tree_util.tree_map(np.asarray, variables)``).
 
-Mapping, per stage and per index i:
+DeepLab mapping: ``trunk/conv{s}_{i}`` -> ``trunk.convs[s-1][i-1]``,
+``head/fc6..fc8`` (SEC) or ``branch{rate}/fc6..fc8`` (DSRG) -> the head's
+convolutions; ``kernel`` HWIO -> ``weight`` OIHW, ``bias`` as is.
+
+Classifier mapping, per stage and per index i:
   * ``Conv_i.kernel`` HWIO -> ``convs[i].weight`` OIHW; ``bias`` as is;
   * ``BatchNorm_i.scale`` / ``bias`` and ``batch_stats`` ``mean`` /
     ``var`` -> ``bns[i]`` weight / bias / running_mean / running_var
@@ -21,6 +26,7 @@ import torch
 
 from wsss_tpu_torch.models.backbones import (M7Classifier, VGG16Classifier,
                                              VGGStage, _Classifier)
+from wsss_tpu_torch.models.deeplab import DSRGNet, SECNet
 
 
 def _t(a) -> torch.Tensor:
@@ -28,11 +34,15 @@ def _t(a) -> torch.Tensor:
 
 
 @torch.no_grad()
+def _load_conv(conv: torch.nn.Conv2d, p: Mapping) -> None:
+    conv.weight.copy_(_t(p['kernel']).permute(3, 2, 0, 1))
+    conv.bias.copy_(_t(p['bias']))
+
+
+@torch.no_grad()
 def _load_stage(stage: VGGStage, params: Mapping, stats: Mapping) -> None:
     for i, conv in enumerate(stage.convs):
-        p = params[f'Conv_{i}']
-        conv.weight.copy_(_t(p['kernel']).permute(3, 2, 0, 1))
-        conv.bias.copy_(_t(p['bias']))
+        _load_conv(conv, params[f'Conv_{i}'])
     for i, bn in enumerate(stage.bns):
         p, s = params[f'BatchNorm_{i}'], stats[f'BatchNorm_{i}']
         bn.weight.copy_(_t(p['scale']))
@@ -61,4 +71,24 @@ def load_flax_variables(model: _Classifier, variables: Mapping
         _load_stage(stage, p, s)
     model.head.weight.copy_(_t(params['head']['kernel']).t())
     model.head.bias.copy_(_t(params['head']['bias']))
+    return model
+
+
+def load_flax_deeplab(model, params: Mapping):
+    """Copy the flax ``params`` tree (numpy leaves) of a SECNet or
+    DSRGNet into ``model`` in place and return it.  Raises KeyError on a
+    missing entry."""
+    if isinstance(model, SECNet):
+        heads = [(model.head, params['head'])]
+    elif isinstance(model, DSRGNet):
+        heads = [(b, params[f'branch{r}'])
+                 for b, r in zip(model.branches, model.rates)]
+    else:
+        raise TypeError(f'no flax mapping for {type(model).__name__}')
+    for s, stage in enumerate(model.trunk.convs, start=1):
+        for i, conv in enumerate(stage, start=1):
+            _load_conv(conv, params['trunk'][f'conv{s}_{i}'])
+    for head, p in heads:
+        for name in ('fc6', 'fc7', 'fc8'):
+            _load_conv(getattr(head, name), p[name])
     return model

@@ -8,7 +8,8 @@ directory (listed in ``.gitignore``), with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
 
-The hash covers the source and the flags, so an edited source rebuilds.
+The hash covers the source, the headers (``csrc/*.cuh``) and the flags,
+so an edited source rebuilds.
 All sources build in parallel, one nvcc process each, at first use;
 nothing is built when the module is imported.
 """
@@ -56,6 +57,8 @@ def sources() -> Dict[str, pathlib.Path]:
 
 def _target(src: pathlib.Path, flags) -> pathlib.Path:
     h = hashlib.sha256(src.read_bytes() + ' '.join(flags).encode())
+    for header in sorted(CSRC.glob('*.cuh')):
+        h.update(header.read_bytes())
     return BUILD_DIR / f'{src.stem}-{h.hexdigest()[:16]}.so'
 
 

@@ -1,0 +1,131 @@
+"""DeepLab-LargeFOV / ASPP networks of SEC and DSRG (counterpart of
+``wsss_tpu/models/deeplab.py``).
+
+Trunk: conv1..conv5 of VGG16 (conv -> ReLU, no BatchNorm), conv5 with
+dilation 2; 3x3 max-pools with stride 2 after stages 1-3 and stride 1
+after stages 4-5; then pool5a, a 3x3 stride-1 average pool.  Head: fc6
+(3x3 atrous, 1024) -> fc7 (1x1, 1024) -> fc8 (1x1, classes), each hidden
+layer followed by ReLU and dropout.  SEC has one head at rate 12, DSRG
+four at rates 6/12/18/24, summed.  A 321^2 input gives a 41^2 map.
+
+Padding follows flax's 'SAME': a stride-2 3x3 pool pads (1, 1) on an odd
+axis (321 -> 161 -> 81 -> 41) but (0, 1) on an even one, with -inf for
+the max; the average pool pads zeros and divides by the full window of 9
+at the border too; a dilated 3x3 convolution pads by its dilation.
+
+Public layout is the JAX package's: NHWC in, NHWC float32 logits out;
+the convolutions run on the NCHW view of the same memory.  Inference
+only so far: the dropouts are kept as modules (identity in eval) so
+that training can come later.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+MIN_PROB = 1e-4  # SEC.py:40
+
+# (n_convs, width, pool_stride, dilation) per trunk stage
+TRUNK_CFG = ((2, 64, 2, 1), (2, 128, 2, 1), (3, 256, 2, 1),
+             (3, 512, 1, 1), (3, 512, 1, 2))
+
+
+def _same_pad(n: int, window: int, stride: int):
+    """flax/XLA 'SAME' padding (lo, hi) of one axis of length n."""
+    total = max((-(-n // stride) - 1) * stride + window - n, 0)
+    return total // 2, total - total // 2
+
+
+def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """``nn.max_pool(..., padding='SAME')`` of flax on NCHW."""
+    ph, pw = (_same_pad(n, window, stride) for n in x.shape[-2:])
+    x = F.pad(x, pw + ph, value=float('-inf'))
+    return F.max_pool2d(x, window, stride)
+
+
+class DeepLabTrunk(nn.Module):
+    """conv1..conv5 and pool5a on NCHW tensors; ``convs[s][i]`` is the
+    flax trunk's ``conv{s+1}_{i+1}``."""
+
+    def __init__(self):
+        super().__init__()
+        self.convs = nn.ModuleList()
+        ch = 3
+        for n, width, _, dil in TRUNK_CFG:
+            stage = nn.ModuleList()
+            for _ in range(n):
+                stage.append(nn.Conv2d(ch, width, 3, padding=dil,
+                                       dilation=dil))
+                ch = width
+            self.convs.append(stage)
+        self.out_ch = ch
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for stage, (_, _, pool_stride, _) in zip(self.convs, TRUNK_CFG):
+            for conv in stage:
+                x = torch.relu(conv(x))
+            x = max_pool_same(x, 3, pool_stride)
+        # pool5a: zero padding counted in the divisor, as flax's avg_pool
+        return F.avg_pool2d(x, 3, 1, 1, count_include_pad=True)
+
+
+class LargeFOVHead(nn.Module):
+    """fc6 (3x3 atrous, 1024) -> fc7 (1x1, 1024) -> fc8 (1x1, C)."""
+
+    def __init__(self, num_classes: int, dilation: int = 12,
+                 in_ch: int = 512):
+        super().__init__()
+        self.fc6 = nn.Conv2d(in_ch, 1024, 3, padding=dilation,
+                             dilation=dilation)
+        self.fc7 = nn.Conv2d(1024, 1024, 1)
+        self.fc8 = nn.Conv2d(1024, num_classes, 1)
+        self.drop6 = nn.Dropout(0.5)
+        self.drop7 = nn.Dropout(0.5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.drop6(torch.relu(self.fc6(x)))
+        x = self.drop7(torch.relu(self.fc7(x)))
+        return self.fc8(x)
+
+
+class SECNet(nn.Module):
+    """DeepLab-LargeFOV FCN of SEC: NHWC images -> NHWC logits."""
+
+    def __init__(self, num_classes: int):
+        super().__init__()
+        self.trunk = DeepLabTrunk()
+        self.head = LargeFOVHead(num_classes, in_ch=self.trunk.out_ch)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.head(self.trunk(x.permute(0, 3, 1, 2)))
+        return x.permute(0, 2, 3, 1).to(torch.float32)
+
+
+class DSRGNet(nn.Module):
+    """DeepLab-ASPP FCN of DSRG: four LargeFOV branches at dilation
+    6/12/18/24 (``branches[i]`` is flax's ``branch{rate}``), summed."""
+
+    def __init__(self, num_classes: int,
+                 rates: Sequence[int] = (6, 12, 18, 24)):
+        super().__init__()
+        self.rates = tuple(rates)
+        self.trunk = DeepLabTrunk()
+        self.branches = nn.ModuleList(
+            LargeFOVHead(num_classes, dilation=r, in_ch=self.trunk.out_ch)
+            for r in self.rates)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.trunk(x.permute(0, 3, 1, 2))
+        out = 0.
+        for branch in self.branches:
+            out = out + branch(x)
+        return out.permute(0, 2, 3, 1).to(torch.float32)
+
+
+def sp_softmax(logits: torch.Tensor) -> torch.Tensor:
+    """Softmax with the min_prob floor, renormalized (SEC.py:232-250)."""
+    sm = torch.softmax(logits, dim=-1) + MIN_PROB
+    return sm / torch.sum(sm, dim=-1, keepdim=True)

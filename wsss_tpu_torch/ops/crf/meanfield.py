@@ -100,10 +100,15 @@ def _mean_field_mxu(probs: torch.Tensor, imgs: torch.Tensor, *, g_sxy,
                     ref_round=False) -> torch.Tensor:
     """Batched mean field over the bilateral grid, f32 state.
 
-    The reference splits a batch into chunks of 2 images
-    (meanfield.py:754-783) to bound the TPU's working set; that changes
-    no math, so the port runs the whole batch at once (the C=21 grid of
-    a VOC batch of 8 at 321^2 is 223 MB of f32).
+    The reference splits a batch into chunks to bound the TPU's working
+    set: 2 images where the grid's v2 kernels run, 1 where its v1
+    kernels do (``_mxu_chunk``, meanfield.py:737-743).  That changes no
+    math, so the port runs the whole batch at once on either route (the
+    C=21 grid of a VOC batch of 8 at 321^2 is 223 MB of f32, the v1
+    route's per-tile partials 704 MB).  Which route the two grids take
+    (``mxu_grid.MXUBilateralGrid``: v2, or v1 for more than 32 classes
+    or under WSSS_TPU_MXU_V1) is theirs to choose; the C=1 normalizer
+    grid follows the message grid through ``share_from``.
 
     ref_round=True rounds to bf16 where the reference does (filter input
     and output, grid kernels, Gaussian-message operands) — a CPU-test

@@ -15,13 +15,34 @@ The filter approximates ``K @ x`` per image, with
 The geometry (cell sizes, blur sigmas calibrated for the interpolation
 variance, routing limits) is the reference's, copied here.  The grid
 itself is laid out canonically, ``[B, gy, gx, gc, gc, gc, C]`` f32: the
-TPU's one-hot matmuls, per-tile partials and lane packing do not carry
-over (see ``wsss_tpu_torch/kernels/bilateral.py`` for the kernels and
-their plain versions).  The spatial blur stays a matrix product, as the
-reference leaves it to XLA.
+TPU's one-hot matmuls and lane packing do not carry over (see
+``wsss_tpu_torch/kernels/bilateral.py`` for the kernels and their plain
+versions).  The spatial blur stays a matrix product, as the reference
+leaves it to XLA.
+
+A filter takes one of the reference's three kernel routes, chosen as
+``MXUBilateralGrid.__init__`` chooses there (mxu_grid.py :663-666,
+:799-801), each kernel standing for the reference's of that route:
+
+  route       taken when                    splat -> ... -> slice
+  v2          C <= 32 and the v2 bounds     bilateral_splat (K1 + K2's
+              hold, WSSS_TPU_MXU_V1 unset   fold) -> bilateral_color_blur
+                                            (K2's blur) -> spatial ->
+                                            bilateral_slice (K3)
+  v1 fused    v2 off, four whole partials   bilateral_splat_tiles (K4) ->
+              fit the reference's VMEM      bilateral_fold_blur (K6) ->
+              bound (fuse_combine_blur)     spatial -> bilateral_slice (K7)
+  v1 unfused  v2 off, they do not fit       bilateral_splat_tiles (K4) ->
+              (C 33..64 at gc 16)           bilateral_fold (K5) -> spatial
+                                            -> bilateral_cube_blur (K8) ->
+                                            bilateral_slice (K7)
+
+The v1 kernels sum in a fixed order (no atomics): a v1 filter gives the
+same bits on every run.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -31,6 +52,14 @@ from wsss_tpu_torch.kernels import bilateral as K
 
 _BLUR_RADIUS = 2            # colour-axis taps
 _MAX_TILE = 48              # spatial cell cap of the TPU tiling
+# the reference leaves its Pallas colour blur for band-matrix einsums
+# above this many cube elements (mxu_grid.py :787); `applicable` admits
+# at most 625 000 (gc^3 * 4 * C <= 2 500 000), so no grid gets there and
+# the port has no such blur
+_CUBE_BLUR_MAX = 1_000_000
+
+# WSSS_TPU_MXU_V1=1 forces the v1 route, as in the reference (:89-91)
+_V2_DISABLED = os.environ.get('WSSS_TPU_MXU_V1', '') not in ('', '0')
 
 
 def _round_up(x: int, m: int) -> int:
@@ -59,6 +88,35 @@ def grid_dims(srgb: float, cell_mult: float = 1.0) -> Tuple[int, int]:
     of 0..255 intensities at cell size cell_mult*srgb."""
     gc = int(round(255.0 / (srgb * cell_mult))) + 1
     return gc, gc ** 3
+
+
+def _v2_geometry(gc: int):
+    """(gcp4, h2p, lbv) of the reference's v2 corner-tiled layout for a
+    gc-cell colour cube; only its routing bounds matter here."""
+    gcp4 = -(-gc // 4)
+    h2p = _round_up(gc * gcp4, 16)
+    lbv = 1
+    for cand in range(gc, 0, -1):
+        if gc % cand == 0 and cand * h2p * 512 * 2 * 2 <= 4 * 1024 * 1024:
+            lbv = cand
+            break
+    return gcp4, h2p, lbv
+
+
+def v2_eligible(srgb: float, n_ch: int, cell_mult: float = 1.0) -> bool:
+    """Whether the reference runs its v2 kernels for this config on the
+    compiled path: at most 32 channels and its VMEM bounds."""
+    gc, _ = grid_dims(srgb, cell_mult)
+    _, h2p, lbv = _v2_geometry(gc)
+    return (n_ch <= 32
+            and gc * h2p * 128 * (4 * 2 * 2 + 4) <= 10 * 1024 * 1024
+            and lbv * h2p * 512 * 2 * 2 <= 4 * 1024 * 1024)
+
+
+def v2_active(srgb: float, n_ch: int, cell_mult: float = 1.0) -> bool:
+    """Whether a grid of this config takes the v2 route: eligible and
+    not switched off by WSSS_TPU_MXU_V1."""
+    return v2_eligible(srgb, n_ch, cell_mult) and not _V2_DISABLED
 
 
 def applicable(sxy: float, srgb: float, n_ch: int = 32,
@@ -100,11 +158,15 @@ class MXUBilateralGrid:
 
     share_from: a grid built on the same imgs/sxy/srgb/cell_mult whose
     channel-independent geometry (colour cells, blur matrices) is reused
-    — the CRF's C=1 normalizer grid shares the message grid's.
+    — the CRF's C=1 normalizer grid shares the message grid's, and with
+    it the v1 route when the message grid is on it.
     require8=False admits cells that are not a multiple of 8 (the
     reference's interpret-mode geometry, for tests).
     ref_round=True runs the plain versions with bf16 rounding at the
-    reference kernels' rounding points — a CPU-test switch only."""
+    rounding points of the route's reference kernels — a CPU-test switch
+    only.
+
+    ``v2`` and ``fuse_combine_blur`` hold the route (module docstring)."""
 
     def __init__(self, imgs: torch.Tensor, sxy: float, srgb: float,
                  n_ch: int, cell_mult: float = 1.0,
@@ -130,11 +192,18 @@ class MXUBilateralGrid:
         # (1/12 per side); the floor keeps the taps well-formed
         self.sig_col = float(np.sqrt(max((srgb / cell) ** 2 - 1.0 / 6.0,
                                          0.05)))
+        self.v2 = v2_active(srgb, n_ch, cell_mult)
+        # the reference fuses the blur into the fold when four whole
+        # [gc, hip, 4C] bf16 partials, double-buffered, fit 8 MB of VMEM
+        hip = _round_up(gc * gc, 16)
+        self.fuse_combine_blur = (gc * hip * 4 * n_ch * 2 * 8
+                                  <= 8 * 1024 * 1024)
         if share_from is not None:
             s = share_from
             if (s.bhw, s.t, s.gc, s.k_sp) != (self.bhw, t, gc, k_sp):
                 raise ValueError('share_from grid has different geometry '
                                  '(imgs/sxy/srgb/cell_mult must match)')
+            self.v2 = self.v2 and s.v2
             self.cell, self.blur_sp, self.taps = s.cell, s.blur_sp, s.taps
             return
         idx = torch.clamp(torch.round(imgs.to(torch.float32) / cell),
@@ -175,16 +244,35 @@ class MXUBilateralGrid:
             x = torch.nn.functional.pad(x, (0, self.n_ch - cin))
         x = x.contiguous()
         t, gy, gx, gc = self.t, self.gy, self.gx, self.gc
-        if self.ref_round:
-            grid = K.bilateral_splat_plain(x, self.cell, t, gy, gx, gc,
-                                           ref_round=True)
-            grid = K.bilateral_color_blur_plain(grid, self.taps,
-                                                ref_round=True)
+        if gc ** 3 * self.n_ch > _CUBE_BLUR_MAX:
+            raise ValueError(
+                f'colour cube of gc^3 * C = {gc ** 3 * self.n_ch} elements '
+                f'exceeds {_CUBE_BLUR_MAX}: no blur kernel of the port '
+                'takes it (`applicable` admits at most 625 000)')
+
+        def run(name, *args):
+            """The kernel's wrapper, or with ref_round its plain version
+            rounding where the reference kernel does."""
+            if self.ref_round:
+                return getattr(K, name + '_plain')(*args, ref_round=True)
+            return getattr(K, name)(*args)
+
+        if self.v2:
+            grid = run('bilateral_splat', x, self.cell, t, gy, gx, gc)
+            grid = run('bilateral_color_blur', grid, self.taps)
             grid = self._spatial_blur(grid)
+        else:
+            part = run('bilateral_splat_tiles', x, self.cell, t, gc)
+            if self.fuse_combine_blur:
+                grid = run('bilateral_fold_blur', part, self.taps)
+                grid = self._spatial_blur(grid)
+            else:       # the spatial blur comes before the colour blur
+                grid = run('bilateral_fold', part)
+                del part
+                grid = self._spatial_blur(grid)
+                grid = run('bilateral_cube_blur', grid, self.taps)
+        if self.ref_round:
             out = K.bilateral_slice_plain(grid, self.cell, t)
         else:
-            grid = K.bilateral_splat(x, self.cell, t, gy, gx, gc)
-            grid = K.bilateral_color_blur(grid, self.taps)
-            grid = self._spatial_blur(grid)
             out = K.bilateral_slice(grid, self.cell, t)
         return out[..., :cin]
