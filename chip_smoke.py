@@ -17,7 +17,12 @@ Phases, in order; any failure exits non-zero and prints no result:
                (gc 52).  Error against the stated tolerance (the v1
                kernels: bit-equal, and the same bits on two runs), and
                times from CUDA events (median) beside the bound and a
-               library call;
+               library call; the scatter grid's flat colour blur in its
+               fused and split forms on the IRNet label CRF's grid
+               (9 x 9 x 56^3 cells, C 21) and on the VOC HistoSegNet
+               config's scatter grid (C 21 split, C 1 fused); the aligned
+               grid's splat and slice at batch 8, 321^2, t 20, gc 16 and
+               gc 21, and on a ragged 13x17 image;
   4. main    — HSNSegmenter.segment_batch for VOC2012 with random-init
                full-width VGG16 fg and bg classifiers at 321^2, batch 8,
                the production CRF config: img/s, CAM- and CRF-stage ms,
@@ -33,7 +38,24 @@ Phases, in order; any failure exits non-zero and prints no result:
   6. wide    — mean_field at 40 classes, which takes the v1 route without
                a switch (unfused message grid, fused C=1 grid): launch
                counts, Q, argmax agreement with the plain versions;
-  7. result  — one JSON line of kernels, then the last line
+  7. irn_label — crf_label_refine with IRNet's label CRF on two 321^2
+               images of 21 labels on the card (the scatter grid; the
+               host's permutohedral library is built first where it can
+               be, and must not draw card tensors away): launch counts of
+               the flat colour blur read right after the call, label
+               agreement with the plain versions; then, counted apart,
+               blur_color_axes (split form) on the path's own grids
+               against the fused form; one image as CPU tensors through
+               the native route where its library builds;
+  8. adp_hsn — ADPHSNSegmenter.segment_batch, full-width X1.7 (51-way),
+               random weights, batch 8 at 224^2, the default ADP CRFs
+               (direct window): img/s, the CRF's share, the window
+               against weight maps computed offset by offset, and against
+               a cache of them in time, at ADP's shape and at the VOC M7
+               config's;
+  9. aligned — AlignedBilateralGrid.filter at batch 8, 321^2, C 21:
+               launch counts, error against the plain versions;
+ 10. result  — one JSON line of kernels, then the last line
                {"ok": true, "device": {...}}.
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Needs no network and imports nothing of JAX.
@@ -83,6 +105,9 @@ V1_FUSED = ('bilateral_splat_tiles', 'bilateral_fold_blur',
             'bilateral_slice')
 V1_UNFUSED = ('bilateral_splat_tiles', 'bilateral_fold',
               'bilateral_cube_blur', 'bilateral_slice')
+ALIGNED = ('bilateral_splat_aligned', 'bilateral_cube_blur',
+           'bilateral_slice_aligned')
+SCATTER = ('flat_color_blur',)
 
 
 def check_launches(launches, expected, path):
@@ -111,7 +136,7 @@ def phase_build():
     secs = build.build(verbose=True)
     for name, log in sorted(build.BUILD_LOG.items()):
         print(f'[build] {name}:\n{log}')
-    print(f'[build] {len(build.sources())} kernels built in {secs:.1f} s '
+    print(f'[build] {len(build.sources())} sources built in {secs:.1f} s '
           f'({build.BUILD_DIR})')
 
 
@@ -718,6 +743,480 @@ def phase_wide(torch):
     return {'wide': launches}
 
 
+def hold_bit_equal(torch, name, label, got, ref):
+    check(got.shape == ref.shape and torch.isfinite(got).all(),
+          f'{name} {label}: shape {tuple(got.shape)} or non-finite')
+    err = float((got - ref).abs().max())
+    print(f'[kernels] {name} {label}: max_abs_err {err:.3e} (bit-equal '
+          f'expected; max |plain| {float(ref.abs().max()):.4g})')
+    check(torch.equal(got, ref),
+          f'{name} {label} is not bit-equal to its plain version')
+    return err
+
+
+def interior(grid, gshape, c):
+    """The non-margin cells of a scatter grid [gy, gx, F]: at least 2
+    from both ends of every colour axis."""
+    gy, gx, gr, gg, gb = gshape
+    return grid.view(gy, gx, gr, gg, gb, c)[:, :, 2:-2, 2:-2, 2:-2]
+
+
+def hold_flat_blur(torch, bg, x, label, want_form, timed):
+    """Both forms of the scatter grid's colour blur on the grid `bg`
+    scatters from x [1,H,W,C]: the fused form (what BilateralGrid.filter
+    runs) and the reference's dispatch (`want_form` says which form it
+    must pick here), each bit-equal to its plain version, the two equal
+    outside the margin cells.  Returns {kernel name: numbers} for the
+    form(s) measured; with `timed`, times, bound and the conv3d
+    yardstick too."""
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.ops.crf import pallas_blur
+    c = x.shape[-1]
+    gshape = bg.gshape
+    g = bg.splat(x)[0]                                   # [gy, gx, F]
+    passes = bg.color_passes(c)
+    ks, strides = [p[0] for p in passes], [p[1] for p in passes]
+    f = g.shape[-1]
+    check(pallas_blur.fits_vmem(f) == (want_form == 'fused')
+          and pallas_blur.fits_vmem(f // gshape[2]),
+          f'dispatch of {label} changed (F = {f})')
+
+    def fused():
+        return pallas_blur.color_blur_fused(g, ks, strides)
+
+    def dispatch():
+        return pallas_blur.blur_color_axes(g, ks, strides, gshape)
+    K.reset_launch_counts()
+    got_f, got_d = fused(), dispatch()
+    torch.cuda.synchronize()
+    check(K.LAUNCHES['flat_color_blur'] == 6,        # 3 passes each
+          f'{label}: launches {dict(K.LAUNCHES)}')
+    with K.plain_versions():
+        ref_f, ref_d = fused(), dispatch()
+    res = {'flat_color_blur': {'max_abs_err': hold_bit_equal(
+        torch, 'flat_color_blur', label + ' fused form', got_f, ref_f)}}
+    err_d = hold_bit_equal(torch, 'flat_color_blur',
+                           f'{label} dispatch ({want_form} form)', got_d,
+                           ref_d)
+    if want_form == 'split':
+        res['flat_color_blur_split'] = {'max_abs_err': err_d}
+        a, b = interior(got_f, gshape, c), interior(got_d, gshape, c)
+        scale = float(a.abs().max())
+        d = float((a - b).abs().max())
+        print(f'[kernels] flat_color_blur {label}: split vs fused form on '
+              f'the non-margin cells: max diff {d:.3e} (tolerance 1e-5 of '
+              f'max {scale:.4g}); on all cells '
+              f'{float((got_f - got_d).abs().max()):.3e}')
+        check(d <= 1e-5 * scale, f'{label}: forms disagree off the margins')
+    del ref_f, ref_d, got_d
+    fns = {'flat_color_blur': fused, 'flat_color_blur_split': dispatch}
+    bb, bf = bound_ms(2 * g.numel() * 4, 27 * g.numel())
+    for name, r in res.items():
+        r.update(ms=cuda_ms(torch, fns[name], reps=10), bound_ms=bb,
+                 bound_by=bf)
+        if timed:
+            with K.plain_versions():
+                r['plain_ms'] = cuda_ms(torch, fns[name], reps=5, warmup=1)
+    if timed:
+        # yardstick: one depthwise conv3d with the outer product of the
+        # three tap sets; it zero-fills every row's end, so it computes
+        # the same function on the non-margin cells only
+        gy, gx, gr, gg, gb = gshape
+        w3 = [torch.tensor(np.asarray(k), device=g.device) for k in ks]
+        w3 = (w3[0][:, None, None] * w3[1][None, :, None]
+              * w3[2][None, None, :]).expand(c, 1, 5, 5, 5).contiguous()
+        cl3 = g.view(gy * gx, gr, gg, gb, c).permute(0, 4, 1, 2, 3)
+
+        def blur_lib():
+            return torch.nn.functional.conv3d(cl3, w3, padding=2, groups=c)
+        lib = blur_lib().permute(0, 2, 3, 4, 1).reshape(got_f.shape)
+        lib_err = float((interior(lib, gshape, c)
+                         - interior(got_f, gshape, c)).abs().max())
+        check(lib_err <= 1e-3 * float(got_f.abs().max()),
+              f'conv3d yardstick computes another function ({lib_err})')
+        del lib
+        lib_ms = cuda_ms(torch, blur_lib, reps=3, warmup=1)
+        for r in res.values():
+            r['library_ms'] = lib_ms
+    for name, r in res.items():
+        extra = (f', plain {r["plain_ms"]:.4f} ms, library (conv3d) '
+                 f'{r["library_ms"]:.4f} ms' if timed else '')
+        print(f'[kernels] {name} {label}: {r["ms"]:.4f} ms{extra}, bound '
+              f'{r["bound_ms"]:.4f} ms ({r["bound_by"]})')
+    return res
+
+
+def structured_case(torch, gen, b, hw, n_labels, flip=0.15):
+    """Seeded images [b,H,W,3] of flat-coloured 40-px blocks plus noise,
+    and label maps [b,H,W] that follow the blocks with a share `flip` of
+    the pixels relabelled at random: something for a CRF to clean."""
+    h, w = hw
+    nby, nbx = -(-h // 40), -(-w // 40)
+    block_lab = torch.randint(0, n_labels, (b, nby, nbx), generator=gen,
+                              device='cuda')
+    palette = torch.rand((n_labels, 3), generator=gen, device='cuda') * 255
+    up = block_lab.repeat_interleave(40, 1).repeat_interleave(40, 2)[
+        :, :h, :w]
+    imgs = palette[up] + 10 * torch.randn((b, h, w, 3), generator=gen,
+                                          device='cuda')
+    noise = torch.rand((b, h, w), generator=gen, device='cuda') < flip
+    rand_lab = torch.randint(0, n_labels, (b, h, w), generator=gen,
+                             device='cuda')
+    return imgs.clamp(0, 255), torch.where(noise, rand_lab, up)
+
+
+def phase_kernels_scatter(torch, results):
+    """flat_color_blur in both forms at the IRNet label CRF's grid (the
+    headline numbers) and at the VOC HistoSegNet config's scatter grid."""
+    from wsss_tpu_torch.ops.crf import config as crf_config
+    from wsss_tpu_torch.ops.crf.meanfield import BilateralGrid
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    imgs, _ = structured_case(torch, gen, 1, (SIZE, SIZE), 21)
+    cfg = crf_config.IRN_LABEL
+    bg = BilateralGrid(imgs, cfg.bi_sxy, cfg.bi_srgb)
+    check(bg.gshape == (9, 9, 56, 56, 56),
+          f'IRN label grid changed: {bg.gshape}')
+    x = torch.rand((1, SIZE, SIZE, 21), generator=gen, device='cuda')
+    res = hold_flat_blur(torch, bg, x, 'IRN label grid 9x9x56^3 C=21',
+                         'split', timed=True)
+    for name, r in res.items():
+        results[name] = dict(r, shape='irn_c21', cases={})
+    del res
+    torch.cuda.empty_cache()
+    ones = torch.ones((1, SIZE, SIZE, 1), device='cuda')
+    res = hold_flat_blur(torch, bg, ones, 'IRN label grid 9x9x56^3 C=1',
+                         'split', timed=False)
+    for name, r in res.items():
+        results[name]['cases']['irn_c1'] = r
+    cfg = crf_config.hsn_config('VOC2012', 'VGG16')
+    bg = BilateralGrid(imgs, cfg.bi_sxy, cfg.bi_srgb)
+    check(bg.gshape == (11, 11, 24, 24, 24),
+          f'VOC scatter grid changed: {bg.gshape}')
+    for xx, c, form in ((x, 21, 'split'), (ones, 1, 'fused')):
+        res = hold_flat_blur(torch, bg, xx,
+                             f'VOC scatter grid 11x11x24^3 C={c}', form,
+                             timed=False)
+        for name, r in res.items():
+            results[name]['cases'][f'voc_scatter_c{c}'] = r
+
+
+def phase_kernels_aligned(torch, results):
+    """The aligned grid's splat and slice against their plain versions at
+    batch 8, 321^2, t 20 (headline: gc 16, C 21; also gc 21) and on a
+    ragged 13x17 image."""
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.ops.crf import mxu_grid
+    from wsss_tpu_torch.ops.crf.meanfield import MXU_CELL_MULT
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(6)
+    shapes = (('b8_gc16', (BATCH, SIZE, SIZE), 40.0, 13.0, 21, MXU_CELL_MULT),
+              ('b8_gc21', (BATCH, SIZE, SIZE), 40.0, 13.0, 21, 1.0),
+              ('ragged', (2, 13, 17), 6.0, 64.0, 3, 1.0))
+    for case, (b, h, w), sxy, srgb, c, mult in shapes:
+        imgs = torch.rand((b, h, w, 3), generator=gen, device=dev) * 255
+        geo = mxu_grid.AlignedBilateralGrid(imgs, sxy, srgb, c,
+                                            cell_mult=mult)
+        t, gc, cell = geo.t, geo.gc, geo.cell
+        if case != 'ragged':
+            check((t, geo.nty, geo.ntx) == (20, 17, 17)
+                  and gc == (16 if case == 'b8_gc16' else 21),
+                  f'aligned geometry changed: {(t, geo.nty, geo.ntx, gc)}')
+        x = torch.rand((b, h, w, c), generator=gen, device=dev)
+        label = f'B={b} {h}x{w} t={t} gc={gc} C={c}'
+        ref_s = K.bilateral_splat_aligned_plain(x, cell, t, gc)
+        got_s = K.bilateral_splat_aligned(x, cell, t, gc)
+        g_bl = geo._blur(ref_s)
+        ref_l = K.bilateral_slice_aligned_plain(g_bl, cell, t)
+        got_l = K.bilateral_slice_aligned(g_bl, cell, t)
+        torch.cuda.synchronize()
+        check(got_s.shape == ref_s.shape and torch.isfinite(got_s).all(),
+              f'bilateral_splat_aligned {label}: shape or non-finite')
+        err = float((got_s - ref_s).abs().max())
+        scale = float(ref_s.abs().max())
+        print(f'[kernels] bilateral_splat_aligned {label}: max_abs_err '
+              f'{err:.3e} (tolerance 1e-5 of max |plain| {scale:.4g}: '
+              f'atomic order)')
+        check(err <= 1e-5 * scale,
+              f'bilateral_splat_aligned {label} disagrees with plain')
+        res = {'bilateral_splat_aligned': {'max_abs_err': err},
+               'bilateral_slice_aligned': {'max_abs_err': hold_bit_equal(
+                   torch, 'bilateral_slice_aligned', label, got_l, ref_l)}}
+        del got_s, got_l
+        if case != 'ragged':
+            rows = K._tile_rows(cell, t, gc ** 3)
+            flat_rows, vals = rows.reshape(-1), x.reshape(-1, c)
+
+            def splat_lib():
+                return torch.zeros((ref_s.numel() // c, c), device=dev
+                                   ).index_add_(0, flat_rows, vals)
+            g_flat = g_bl.reshape(-1, c)
+            check(torch.equal(g_flat[rows], ref_l),
+                  'gather yardstick computes another function')
+            bb, bf = bound_ms(x.numel() * 4 + cell.numel() * 4
+                              + ref_s.numel() * 4, x.numel())
+            res['bilateral_splat_aligned'].update(
+                ms=cuda_ms(torch, lambda: K.bilateral_splat_aligned(
+                    x, cell, t, gc)),
+                plain_ms=cuda_ms(torch, lambda:
+                                 K.bilateral_splat_aligned_plain(
+                                     x, cell, t, gc), reps=10),
+                library_ms=cuda_ms(torch, splat_lib, reps=10),
+                bound_ms=bb, bound_by=bf)
+            touched = int(torch.unique(flat_rows).numel())
+            bb, bf = bound_ms(touched * c * 4 + cell.numel() * 4
+                              + ref_l.numel() * 4, 0)
+            res['bilateral_slice_aligned'].update(
+                ms=cuda_ms(torch, lambda: K.bilateral_slice_aligned(
+                    g_bl, cell, t)),
+                plain_ms=cuda_ms(torch, lambda:
+                                 K.bilateral_slice_aligned_plain(
+                                     g_bl, cell, t), reps=10),
+                library_ms=cuda_ms(torch, lambda: g_flat[rows], reps=10),
+                bound_ms=bb, bound_by=bf)
+            for name, r in res.items():
+                print(f'[kernels] {name} {label}: {r["ms"]:.4f} ms, plain '
+                      f'{r["plain_ms"]:.4f} ms, library '
+                      f'{r["library_ms"]:.4f} ms, bound '
+                      f'{r["bound_ms"]:.4f} ms ({r["bound_by"]})')
+        for name, r in res.items():
+            if case == 'b8_gc16':
+                results[name] = dict(r, shape=case, cases={})
+            else:
+                results[name]['cases'][case] = r
+        del ref_s, g_bl, ref_l, res
+        torch.cuda.empty_cache()
+
+
+def phase_irn_label(torch):
+    """crf_label_refine with IRNet's label CRF on the scatter grid."""
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.ops.crf import config as crf_config
+    from wsss_tpu_torch.ops.crf import meanfield as mf
+    from wsss_tpu_torch.ops.crf import native, pallas_blur
+    cfg, n_labels, n_img = crf_config.IRN_LABEL, 21, 2
+    # built or not, the host library must not draw card tensors away
+    native_built = native.available() or native.build()
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    imgs, labels = structured_case(torch, gen, n_img, (SIZE, SIZE),
+                                   n_labels)
+    check(mf.bilateral_structure((SIZE, SIZE), cfg.bi_sxy, cfg.bi_srgb)
+          == 'grid' and not mf._mxu_ok((SIZE, SIZE), n_labels, cfg),
+          'the IRN label CRF no longer routes to the scatter grid')
+    mf.crf_label_refine(imgs[0], labels[0], n_labels, cfg)       # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    refined = mf.crf_label_refine(imgs, labels, n_labels, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    with K.plain_versions():
+        plain = mf.crf_label_refine(imgs, labels, n_labels, cfg)
+    print(f'[irn_label] crf_label_refine, {cfg}, {n_img} images of '
+          f'{SIZE}^2, {n_labels} labels: {n_img / dt:.2f} img/s '
+          f'({1e3 * dt / n_img:.1f} ms/img); launches {launches}')
+    # The reference's per-cell dispatch on the path's own grid: at this
+    # shape it takes the split form for C 21 and for C 1.  No entry point
+    # runs that form (the filter runs whole stripes whatever F is), so
+    # these launches are this script's own and are counted apart.
+    bg = mf.BilateralGrid(imgs[:1], cfg.bi_sxy, cfg.bi_srgb)
+    onehot = torch.nn.functional.one_hot(
+        labels[:1].long(), n_labels).to(torch.float32)
+    n_split = 0
+    for x in (onehot, onehot[..., :1] * 0 + 1):
+        c = x.shape[-1]
+        g = bg.splat(x)[0]
+        passes = bg.color_passes(c)
+        ks, strides = [p[0] for p in passes], [p[1] for p in passes]
+        check(not pallas_blur.fits_vmem(g.shape[-1]),
+              f'the dispatch no longer splits the C={c} grid')
+        K.reset_launch_counts()
+        split = pallas_blur.blur_color_axes(g, ks, strides, bg.gshape)
+        n_split += K.LAUNCHES['flat_color_blur']
+        full = K.flat_color_blur(g.view(-1, g.shape[-1]), passes
+                                 ).view(g.shape)
+        a = interior(full, bg.gshape, c)
+        d = float((a - interior(split, bg.gshape, c)).abs().max())
+        print(f'[irn_label] blur_color_axes C={c} on the path\'s grid: '
+              f'max diff from the full-F form off the margins {d:.3e} '
+              f'(tolerance 1e-5 of max {float(a.abs().max()):.4g})')
+        check(d <= 1e-5 * float(a.abs().max()),
+              f'blur_color_axes C={c} disagrees with the full-F form')
+        del g, split, full, a
+    torch.cuda.synchronize()
+    check_launches(launches, SCATTER, 'the irn_label path')
+    want = 3 * (cfg.iterations + 1) * n_img
+    check(launches['flat_color_blur'] == want and n_split == 6,
+          f'flat_color_blur launches {launches["flat_color_blur"]} from '
+          f'crf_label_refine and {n_split} from blur_color_axes, expected '
+          f'{want} and 6')
+    print(f'[irn_label] blur_color_axes (split form), called by this '
+          f'script on the path\'s grids: {n_split} flat_color_blur launches')
+    check(refined.shape == labels.shape and refined.dtype == torch.int32
+          and int(refined.min()) >= 0 and int(refined.max()) < n_labels,
+          'refined labels out of shape or range')
+    changed = float((refined != labels).float().mean())
+    agree = float((refined == plain).float().mean())
+    print(f'[irn_label] the CRF changed {changed:.4f} of the labels; label '
+          f'agreement kernels vs plain versions: {agree:.6f}')
+    check(agree >= 0.999, f'irn_label labels agree {agree} < 0.999')
+    check(changed > 0.01, 'the CRF changed nothing')
+    if native_built:
+        # CPU tensors: what mean_field sends to the host library
+        check(mf._fine_color_native_ok((SIZE, SIZE), cfg),
+              'the native route refuses the IRN label CRF')
+        t0 = time.perf_counter()
+        nat = mf.crf_label_refine(imgs[0].cpu(), labels[0].cpu(), n_labels,
+                                  cfg)
+        dt = time.perf_counter() - t0
+        print(f'[irn_label] native route (CPU tensors, permutohedral): '
+              f'{1e3 * dt:.1f} ms for one image; labels agree with the '
+              f'scatter grid\'s on '
+              f'{float((nat == refined[0].cpu()).float().mean()):.4f}')
+    else:
+        print('[irn_label] native route: unavailable (the library does '
+              'not build here)')
+    # the split form's launches, made by this script and counted apart
+    return {'irn_label': dict(launches, flat_color_blur_split=n_split)}
+
+
+def hold_direct_window(torch, imgs, cfg, x, label):
+    """DirectBilateral.filter against the same window summed offset by
+    offset from weight maps computed one at a time (the reference's
+    cached form: the maps are kept, every filter shifts x once per
+    offset), in value and in time.  Returns the number of offsets."""
+    from wsss_tpu_torch.ops.crf import meanfield as mf
+    win = mf.DirectBilateral(imgs, cfg.bi_sxy, cfg.bi_srgb)
+    got = win.filter(x)
+    h, w = imgs.shape[1:3]
+    ones = torch.ones((h, w, 1), device=imgs.device)
+    inv = 0.5 / (cfg.bi_srgb * cfg.bi_srgb)
+
+    def wmap(dy, dx, ws):
+        d2 = ((imgs - mf._shift2d(imgs, dy, dx)) ** 2).sum(-1)
+        return ws * torch.exp(-d2 * inv) * mf._shift2d(ones, dy, dx)[..., 0]
+    t0 = time.perf_counter()
+    cache = torch.stack([wmap(dy, dx, ws)
+                         for (dy, dx), ws in zip(win.offs, win.wspace)])
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.perf_counter() - t0)
+
+    def cached_filter():
+        out = torch.zeros_like(x)
+        for i, (dy, dx) in enumerate(win.offs):
+            out = out + cache[i][..., None] * mf._shift2d(x, dy, dx)
+        return out
+    ref = cached_filter()
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    ms = cuda_ms(torch, lambda: win.filter(x), reps=3, warmup=1)
+    ms_c = cuda_ms(torch, cached_filter, reps=3, warmup=1)
+    print(f'[adp_hsn] DirectBilateral {label}, sxy {cfg.bi_sxy:.4g} srgb '
+          f'{cfg.bi_srgb:.4g}, {len(win.offs)} offsets: max rel diff from '
+          f'the offset-by-offset sum {rel:.3e} (tolerance 1e-4); '
+          f'{ms:.2f} ms a filter against {ms_c:.2f} ms from cached weight '
+          f'maps ({cache.numel() * 4 / 2 ** 20:.0f} MiB, built in '
+          f'{build_ms:.1f} ms)')
+    check(torch.isfinite(got).all() and rel <= 1e-4,
+          f'direct window {label} disagrees with the offset-by-offset sum')
+    return len(win.offs)
+
+
+def phase_adp_hsn(torch):
+    """ADPHSNSegmenter at full width on the direct window."""
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.methods.gradcam_cues import _ClassifierHandle
+    from wsss_tpu_torch.methods.hsn import ADPHSNSegmenter
+    from wsss_tpu_torch.ops.crf import meanfield as mf
+    size = 224
+    t0 = time.perf_counter()
+    handle = _ClassifierHandle.random('X1.7', 51, size, seed=2)
+    seg = ADPHSNSegmenter(handle, 'X1.7')
+    torch.cuda.synchronize()
+    print(f'[adp_hsn] X1.7 handle built in {time.perf_counter() - t0:.2f} s;'
+          f' CRFs {seg.cfg_morph} / {seg.cfg_func}')
+    for cfg in (seg.cfg_morph, seg.cfg_func):
+        check(mf.bilateral_structure((size, size), cfg.bi_sxy, cfg.bi_srgb)
+              == 'direct', f'{cfg} no longer routes to the direct window')
+    gen = torch.Generator(device='cuda').manual_seed(8)
+    # tissue-like: mostly dark pixels with a bright (background) band
+    batch = torch.randint(60, 256, (BATCH, size, size, 3), dtype=torch.uint8,
+                          generator=gen, device='cuda')
+    batch[:, :, :40] = 250
+    seg.segment_batch(batch[:1])                          # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    lab_m, lab_f = seg.segment_batch(batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    imgs = batch.to(torch.float32)
+    cam_ms = cuda_ms(torch, lambda: seg.probs(imgs), reps=3, warmup=1)
+    print(f'[adp_hsn] one batch of {BATCH} at {size}^2: '
+          f'{BATCH / dt:.2f} img/s ({1e3 * dt:.1f} ms/batch); CAM stage '
+          f'{cam_ms:.2f} ms, so the two CRFs take '
+          f'{1 - cam_ms / (1e3 * dt):.3f} of the batch; launches '
+          f'{launches}')
+    check_launches(launches, (), 'the adp_hsn path (no hand kernel: the '
+                   'direct window is plain PyTorch, as in the reference)')
+    for lab, spec in ((lab_m, seg.morph_spec), (lab_f, seg.func_spec)):
+        check(lab.shape == (BATCH, size, size) and lab.dtype == torch.int32
+              and int(lab.min()) >= 0
+              and int(lab.max()) < spec.n_seg_classes,
+              f'{spec.name} labels out of shape or range')
+        print(f'[adp_hsn] {spec.name}: '
+              f'{int(lab.unique().numel())} labels present')
+    x = torch.rand((2, size, size, 5), generator=gen, device='cuda')
+    n_off = hold_direct_window(torch, imgs[:2], seg.cfg_func, x,
+                               'ADP func, B 2 C 5')
+    check(n_off > 2800, f'ADP window has {n_off} offsets')
+    # the VOC M7 HistoSegNet config: a small window (81 offsets)
+    from wsss_tpu_torch.ops.crf import config as crf_config
+    cfg = crf_config.hsn_config('VOC2012', 'M7')
+    check(mf.bilateral_structure((size, size), cfg.bi_sxy, cfg.bi_srgb)
+          == 'direct', f'{cfg} no longer routes to the direct window')
+    x = torch.rand((BATCH, size, size, 21), generator=gen, device='cuda')
+    hold_direct_window(torch, imgs, cfg, x, 'VOC M7, B 8 C 21')
+    return {'adp_hsn': launches}
+
+
+def phase_aligned(torch):
+    """AlignedBilateralGrid.filter at the batch-8 shape (a study variant
+    in the reference: no entry point builds it, so the class is driven
+    directly)."""
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.ops.crf import mxu_grid
+    from wsss_tpu_torch.ops.crf.meanfield import MXU_CELL_MULT
+    gen = torch.Generator(device='cuda').manual_seed(9)
+    imgs = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), dtype=torch.uint8,
+                         generator=gen, device='cuda').to(torch.float32)
+    x = torch.softmax(2 * torch.randn((BATCH, SIZE, SIZE, 21), generator=gen,
+                                      device='cuda'), dim=-1)
+    grid = mxu_grid.AlignedBilateralGrid(imgs, 40.0, 13.0, 21,
+                                         cell_mult=MXU_CELL_MULT)
+    grid.filter(x)                                        # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    out = grid.filter(x)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check_launches(launches, ALIGNED, 'the aligned path')
+    check(all(launches[k] == 1 for k in ALIGNED),
+          f'aligned filter launches {launches}, expected one each')
+    ms = cuda_ms(torch, lambda: grid.filter(x), reps=10)
+    with K.plain_versions():
+        plain = grid.filter(x)
+    err = float((out - plain).abs().max())
+    scale = float(plain.abs().max())
+    print(f'[aligned] AlignedBilateralGrid.filter B={BATCH} {SIZE}^2 C=21 '
+          f't={grid.t} gc={grid.gc}: {ms:.3f} ms; launches {launches}; '
+          f'max_abs_err vs plain versions {err:.3e} (tolerance 1e-5 of '
+          f'max {scale:.4g})')
+    check(out.shape == x.shape and torch.isfinite(out).all()
+          and err <= 1e-5 * scale, 'aligned filter disagrees with plain')
+    return {'aligned': launches}
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -725,11 +1224,16 @@ def main():
     phase_build()
     results = phase_kernels(torch)
     phase_kernels_v1(torch, results)
+    phase_kernels_scatter(torch, results)
+    phase_kernels_aligned(torch, results)
     print(f'[time] kernels done at {time.perf_counter() - t_start:.0f} s')
     paths = {'hsn': phase_main(torch)}
     print(f'[time] main path done at {time.perf_counter() - t_start:.0f} s')
     paths.update(phase_sec(torch))
     paths.update(phase_wide(torch))
+    paths.update(phase_irn_label(torch))
+    paths.update(phase_adp_hsn(torch))
+    paths.update(phase_aligned(torch))
     print(f'[time] all paths done at {time.perf_counter() - t_start:.0f} s')
     from wsss_tpu_torch.kernels import build
     sources = build.sources()
@@ -741,21 +1245,35 @@ def main():
         'bilateral_splat_tiles': at + '226',
         'bilateral_fold': at + '414',
         'bilateral_fold_blur': at + '537',
-        'bilateral_cube_blur': at + '515'}
-    check(set(results) == set(sources) == set(replaces),
+        'bilateral_cube_blur': at + '515 (also via '
+                               'AlignedBilateralGrid._blur :1389)',
+        'bilateral_splat_aligned': at + '1167 (call :1344)',
+        'bilateral_slice_aligned': at + '1203 (call :1411)',
+        'flat_color_blur': 'wsss_tpu/ops/crf/pallas_blur.py:47 (call :68)',
+        'flat_color_blur_split':
+            'wsss_tpu/ops/crf/pallas_blur.py:84 (call :110)'}
+    # one kernel serves both forms of the flat colour blur
+    source_of = {name: sources[name.replace('_split', '')]
+                 for name in replaces}
+    check(set(results) == set(replaces)
+          and set(sources) == {p.stem for p in source_of.values()},
           f'kernels measured {sorted(results)} vs built {sorted(sources)}')
     kernels = []
     for name, r in results.items():
-        by_path = {path: n[name] for path, n in paths.items()}
+        by_path = {path: n.get(name, 0) for path, n in paths.items()}
         check(sum(by_path.values()) > 0, f'{name} ran on no path')
         kernels.append(dict(
             name=name, route='cuda',
-            source=f'wsss_tpu_torch/kernels/csrc/{sources[name].name}',
+            source=f'wsss_tpu_torch/kernels/csrc/{source_of[name].name}',
             replaces=replaces[name], launches=sum(by_path.values()),
             max_abs_err=r['max_abs_err'], ms=r['ms'],
             plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
             bound_by=r['bound_by'], library_ms=r['library_ms'],
             launches_by_path=by_path,
+            **({'launched_by': 'this script\'s call of blur_color_axes on '
+                'the irn_label path\'s grids; no entry point of the port '
+                'runs the split form'}
+               if name == 'flat_color_blur_split' else {}),
             **{k: r[k] for k in ('shape', 'cases', 'three_pass_ms',
                                  'gc52_ms') if k in r}))
     print('kernels launched on the paths: '

@@ -9,8 +9,12 @@ stage and the whole segment_batch, runs a torch.profiler window of
 ITERS calls at batch 8, 321^2.  Then the SEC prediction path of
 chip_smoke.py (SECNet, one 375x500 image at 321): the FCN, the test CRF
 on the grid's default route and on its v1 route, and the whole
-predict_image.  Prints per stage: host wall ms per call, device kernel ms
-per call, the device's idle share of the window, the device time by
+predict_image.  Then chip_smoke.py's irn_label path (crf_label_refine
+with IRNet's label CRF on the scatter grid, one 321^2 image, and one
+C 21 filter of that grid alone) and its adp_hsn path (ADPHSNSegmenter,
+X1.7, batch 8 at 224^2: the whole segment_batch and the morph CRF on
+the direct window, one call each).  Prints per stage: host wall ms per
+call, device kernel ms per call, the device's idle share of the window, the device time by
 kernel group and the top kernels.  The idle share is 1 - (union of the
 kernels' intervals) / window, since summed kernel time can exceed the
 window where kernels overlap.  Writes the segment_batch window's chrome
@@ -29,7 +33,8 @@ sys.path.insert(0, str(ROOT))
 BATCH, SIZE, ITERS, TOP = 8, 321, 3, 12
 
 GROUPS = (                       # first match wins, on the kernel's name
-    ('bilateral kernels', r'bilateral_'),
+    ('bilateral kernels', r'bilateral_|flat_color_blur'),
+    ('scatter / gather', r'index|gather|scatter'),
     ('batchnorm', r'bn_fw|batch_norm'),
     ('convolution', r'conv|implicit|fprop|winograd|fft|DSE::|'
                     r'pointwise_mult_and_sum_complex|cudnn'),
@@ -142,6 +147,53 @@ def profile_sec(torch, gen):
     return out
 
 
+def profile_stages(torch, stages, out):
+    """Profile (stage, fn, iters) one after the other into out[stage]."""
+    for stage, fn, iters in stages:
+        _, wall_ms, busy_ms, kernels = profile_window(torch, fn, iters)
+        if not kernels:
+            raise SystemExit(f'{stage}: the profiler recorded no device '
+                             'time')
+        out[stage] = report(stage, wall_ms, busy_ms, kernels, TOP)
+    return out
+
+
+def profile_irn_label(torch, gen):
+    """IRNet's label CRF on the scatter grid, on the card."""
+    from chip_smoke import structured_case
+    from wsss_tpu_torch.ops.crf import config as crf_config
+    from wsss_tpu_torch.ops.crf import meanfield as mf
+    cfg, n_labels = crf_config.IRN_LABEL, 21
+    imgs, labels = structured_case(torch, gen, 1, (SIZE, SIZE), n_labels)
+    bg = mf.BilateralGrid(imgs, cfg.bi_sxy, cfg.bi_srgb)
+    x = torch.rand((1, SIZE, SIZE, n_labels), generator=gen, device='cuda')
+    return profile_stages(torch, (
+        ('irn_label', lambda: mf.crf_label_refine(
+            imgs[0], labels[0], n_labels, cfg), ITERS),
+        ('irn_filter_c21', lambda: bg.filter(x), ITERS)), {})
+
+
+def profile_adp(torch, gen):
+    """ADP HistoSegNet on the direct window, batch 8 at 224^2."""
+    from wsss_tpu_torch.methods.gradcam_cues import _ClassifierHandle
+    from wsss_tpu_torch.methods.hsn import ADPHSNSegmenter
+    from wsss_tpu_torch.ops.crf.meanfield import mean_field
+    size = 224
+    seg = ADPHSNSegmenter(_ClassifierHandle.random('X1.7', 51, size, seed=2),
+                          'X1.7')
+    raw = torch.randint(60, 256, (BATCH, size, size, 3), dtype=torch.uint8,
+                        generator=gen, device='cuda')
+    raw[:, :, :40] = 250
+    imgs = raw.to(torch.float32)
+    cs_m, _ = seg.probs(imgs)
+    out = profile_stages(torch, (
+        ('adp_cam', lambda: seg.probs(imgs), ITERS),
+        ('adp_morph_crf', lambda: mean_field(cs_m, imgs, seg.cfg_morph), 1),
+        ('adp_segment_batch', lambda: seg.segment_batch(raw), 1)), {})
+    out['adp_img_per_s'] = BATCH / (out['adp_segment_batch']['wall_ms'] / 1e3)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -181,6 +233,8 @@ def main():
     print(f'[trace] {trace.relative_to(ROOT)}')
     out['img_per_s'] = BATCH / (out['segment_batch']['wall_ms'] / 1e3)
     out.update(profile_sec(torch, gen))
+    out.update(profile_irn_label(torch, gen))
+    out.update(profile_adp(torch, gen))
     print(json.dumps(out))
 
 

@@ -97,6 +97,26 @@ def test_plain_slice_matches_definition():
     np.testing.assert_allclose(got, want, atol=1e-6)
 
 
+def test_plain_flat_color_blur_matches_definition():
+    """One pass is a flat shift-and-add with zero fill at the stripe's
+    ends only: a shift bleeds across the rows of the embedded axis."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(0, 1, (3, 40)).astype(np.float32)
+    taps, stride = [0.1, 0.5, 1.0, 0.4, 0.2], 4
+    want = np.zeros((3, 40))
+    for f in range(40):
+        for j, tap in enumerate(taps):
+            g = f + (j - 2) * stride
+            if 0 <= g < 40:
+                want[:, f] += tap * x[:, g]
+    got = K.flat_color_blur(torch.from_numpy(x), [(taps, stride)])
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+    two = K.flat_color_blur_plain(torch.from_numpy(x),
+                                  [(taps, stride), (taps[1:4], 1)])
+    again = K.flat_color_blur_plain(got, [(taps[1:4], 1)])
+    assert torch.equal(two, again)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -206,3 +226,91 @@ def test_kernel_wrappers_check_their_inputs(cuda_device):
         K.bilateral_cube_blur(
             torch.ones((1, 2, 2, 3, 3, 4, 2), device=cuda_device),
             (1.0, 0.5, 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('c', [21, 1])
+def test_aligned_kernels_match_plain_on_card(cuda_device, c):
+    """Production colour geometry (sxy 40 -> t 20, gc 16) on a ragged
+    70x52 guide, batch 2: the aligned splat within 1e-5 of its max
+    (atomics), the aligned slice bit-equal (a gather), the whole filter
+    within 1e-5."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    imgs = torch.rand((2, 70, 52, 3), generator=gen,
+                      device=cuda_device) * 255
+    g = mxu_grid.AlignedBilateralGrid(imgs, 40.0, 13.0, c, cell_mult=1.35)
+    assert (g.t, g.nty, g.ntx, g.gc) == (20, 4, 3, 16)
+    x = torch.rand((2, 70, 52, c), generator=gen, device=cuda_device)
+    before = dict(K.LAUNCHES)
+    ref = K.bilateral_splat_aligned_plain(x, g.cell, g.t, g.gc)
+    got = K.bilateral_splat_aligned(x, g.cell, g.t, g.gc)
+    assert got.shape == ref.shape == (2, 4, 3, 16, 16, 16, c)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(K.bilateral_slice_aligned(ref, g.cell, g.t),
+                       K.bilateral_slice_aligned_plain(ref, g.cell, g.t))
+    for name in ('bilateral_splat_aligned', 'bilateral_slice_aligned'):
+        assert K.LAUNCHES[name] == before[name] + 1, name
+    with K.plain_versions():
+        plain = g.filter(x)
+    torch.testing.assert_close(g.filter(x), plain, rtol=1e-5, atol=1e-5)
+    assert (K.LAUNCHES['bilateral_cube_blur']
+            == before['bilateral_cube_blur'] + 1)
+
+
+@pytest.mark.cuda
+def test_flat_color_blur_matches_plain_on_card(cuda_device):
+    """Both forms of the scatter grid's colour blur on a (3, 2, 24^3)
+    grid of 21 channels, with three different tap sets: bit-equal to the
+    plain chain, one launch a pass."""
+    from wsss_tpu_torch.ops.crf import meanfield as mf
+    from wsss_tpu_torch.ops.crf import pallas_blur
+    gc, c = 24, 21
+    f = gc ** 3 * c
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    grid = torch.rand((3, 2, f), generator=gen, device=cuda_device)
+    ks = [mf._blur_kernel1d(s, 2) for s in (0.913, 0.866, 0.816)]
+    strides = (gc * gc * c, gc * c, c)
+    before = dict(K.LAUNCHES)
+    fused = pallas_blur.color_blur_fused(grid, ks, strides)
+    assert K.LAUNCHES['flat_color_blur'] == before['flat_color_blur'] + 3
+    split = pallas_blur.blur_color_axes(grid, ks, strides,
+                                        (3, 2, gc, gc, gc))
+    assert K.LAUNCHES['flat_color_blur'] == before['flat_color_blur'] + 6
+    with K.plain_versions():
+        assert torch.equal(fused, pallas_blur.color_blur_fused(grid, ks,
+                                                               strides))
+        assert torch.equal(split, pallas_blur.blur_color_axes(
+            grid, ks, strides, (3, 2, gc, gc, gc)))
+    inner = (slice(None), slice(None)) + (slice(2, -2),) * 3
+    a = fused.view(3, 2, gc, gc, gc, c)[inner]
+    b = split.view(3, 2, gc, gc, gc, c)[inner]
+    assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+    with pytest.raises(ValueError, match='odd number of taps'):
+        K.flat_color_blur(grid.view(6, f), [([1.0, 0.5], 1)])
+    with pytest.raises(ValueError, match='want 2 dims'):
+        K.flat_color_blur(grid, [([1.0], 1)])
+
+
+@pytest.mark.cuda
+def test_mean_field_stays_on_the_card(cuda_device, monkeypatch):
+    """A fine-colour grid config on card tensors runs the scatter grid
+    and ``flat_color_blur`` there, whether or not the host's
+    permutohedral library is built."""
+    from wsss_tpu_torch.ops.crf import config
+    from wsss_tpu_torch.ops.crf import meanfield as mf
+    cfg = config.CRFConfig(3, 3, 50, 5, 10, 1)
+    hw = (160, 150)                 # 6 x 5 x 56^3 = 5.3 M cells
+    monkeypatch.setattr(mf._native, 'available', lambda: True)
+    assert mf._fine_color_native_ok(hw, cfg)
+
+    def no_host(*a, **k):
+        raise AssertionError('card tensors went to the host route')
+    monkeypatch.setattr(mf._native, 'mean_field_native', no_host)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    probs = torch.softmax(torch.randn(hw + (3,), generator=gen,
+                                      device=cuda_device), -1)
+    img = torch.rand(hw + (3,), generator=gen, device=cuda_device) * 255
+    before = K.LAUNCHES['flat_color_blur']
+    q = mf.mean_field(probs, img, cfg)
+    assert q.is_cuda and torch.isfinite(q).all()
+    assert K.LAUNCHES['flat_color_blur'] == before + 6

@@ -3,9 +3,10 @@ interpret mode, f32 state), and its routing against the TPU routing.
 
 The reference's fused-path tests use bi_sxy=28; on the TPU's compiled
 path that config does not take the grid (28-px cells are not 8-aligned),
-so the port refuses it (test_non_grid_configs_raise) and the parity test
-runs bi_sxy=40, which takes the same downsampled-message path (8-px cells
-on a 22x22 guide with padded tiles).
+so the port runs it on the scatter grid as the reference's TPU path
+does (test_non_grid_configs_run_on_reference_structure) and the parity
+test runs bi_sxy=40, which takes the same downsampled-message path
+(8-px cells on a 22x22 guide with padded tiles).
 
 Tolerances: the reference rounds its grid and filter input/output to
 bf16.  The f32 port: labels agree >= 0.995, Q within 1.5e-2 (measured
@@ -113,13 +114,32 @@ def test_routing_follows_tpu_routing():
     assert 0 < grid_routed < len(cases)
 
 
-@pytest.mark.parametrize('cfg,hw,n_ch', [
-    (config.hsn_config('ADP-morph'), (1088, 1088), 10),   # sxy 10: window
-    (config.CRFConfig(1.5, 3, 28.0, 40.0, 10.0, 2), (SIZE, SIZE), 4),
-    (config.SEC_TRAIN_DEFAULT, (41, 41), 21),              # dense kernel
-])
-def test_non_grid_configs_raise(cfg, hw, n_ch):
-    probs = torch.full(hw + (n_ch,), 1.0 / n_ch)
-    img = torch.zeros(hw + (3,))
-    with pytest.raises(NotImplementedError, match='queue 1 item 8'):
-        mf.mean_field(probs, img, cfg)
+@pytest.mark.parametrize('cfg,hw,n_ch,kind,small,small_sxy', [
+    (config.hsn_config('ADP-morph'), (1088, 1088), 10, 'direct',
+     (104, 100), 2.0),           # sxy 10: window; run with 113 offsets
+    (config.CRFConfig(1.5, 3, 28.0, 40.0, 10.0, 2), (SIZE, SIZE), 4, 'grid',
+     (SIZE, SIZE), 28.0),                                  # scatter grid
+    (config.SEC_TRAIN_DEFAULT, (41, 41), 21, 'dense', (41, 41), 80 / 12),
+], ids=['direct', 'grid', 'dense'])
+def test_non_grid_configs_run_on_reference_structure(cfg, hw, n_ch, kind,
+                                                     small, small_sxy):
+    """Configs that do not land on the MXU-layout grid get the structure
+    the reference picks for them, and run (here at a size and a
+    bilateral sxy that keep that structure cheap on the CPU, one
+    iteration; tests/test_torch_crf_structures.py holds each structure's
+    values to the reference)."""
+    assert not mf._mxu_ok(hw, n_ch, cfg)
+    assert mf.bilateral_structure(hw, cfg.bi_sxy, cfg.bi_srgb) == kind
+    run = config.CRFConfig(cfg.g_sxy, cfg.g_compat, small_sxy, cfg.bi_srgb,
+                           cfg.bi_compat, 1)
+    assert mf.bilateral_structure(small, run.bi_sxy, run.bi_srgb) == kind
+    assert not mf._mxu_ok(small, n_ch, run)
+    rng = np.random.default_rng(3)
+    probs = torch.from_numpy(rng.dirichlet(np.ones(n_ch), small)
+                             .astype(np.float32))
+    img = torch.from_numpy(rng.uniform(0, 255, small + (3,))
+                           .astype(np.float32))
+    q = mf.mean_field(probs, img, run)
+    assert q.shape == probs.shape and torch.isfinite(q).all()
+    np.testing.assert_allclose(q.sum(-1).numpy(), 1.0, atol=1e-5)
+    assert float((q - probs).abs().max()) > 1e-3

@@ -54,7 +54,8 @@ def test_kernels_are_not_built_at_import():
     assert set(bilateral.LAUNCHES) == {
         'bilateral_splat', 'bilateral_color_blur', 'bilateral_slice',
         'bilateral_splat_tiles', 'bilateral_fold', 'bilateral_fold_blur',
-        'bilateral_cube_blur'}
+        'bilateral_cube_blur', 'bilateral_splat_aligned',
+        'bilateral_slice_aligned', 'flat_color_blur'}
     assert sorted(build.sources()) == sorted(bilateral.LAUNCHES)
 
 

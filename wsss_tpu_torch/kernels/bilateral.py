@@ -32,13 +32,23 @@ wsss_tpu/ops/crf/mxu_grid.py:
   * bilateral_splat_tiles  _splat_kernel (:226);
   * bilateral_fold         _combine_kernel (:414);
   * bilateral_fold_blur    _combine_blur_kernel (:537);
-  * bilateral_cube_blur    _color_blur_kernel (:515).
+  * bilateral_cube_blur    _color_blur_kernel (:515);
+  * bilateral_splat_aligned  _splat_aligned_kernel (:1167);
+  * bilateral_slice_aligned  _slice_aligned_kernel (:1203);
+and, in wsss_tpu/ops/crf/pallas_blur.py, ``flat_color_blur`` replaces
+color_blur_fused (:47) and the kernel of blur_color_axes (:84): one
+kernel and one count, on whole-F stripes for the first and on per-gr
+stripes plus one whole-F pass for the second.
+
+The aligned grid ``[B, nty, ntx, gc, gc, gc, C]`` has one spatial cell
+per pixel tile (no node row of its own): a pixel belongs to the cell of
+tile (y // t, x // t), with no weights.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -52,7 +62,10 @@ LAUNCHES: Dict[str, int] = {'bilateral_splat': 0,
                             'bilateral_splat_tiles': 0,
                             'bilateral_fold': 0,
                             'bilateral_fold_blur': 0,
-                            'bilateral_cube_blur': 0}
+                            'bilateral_cube_blur': 0,
+                            'bilateral_splat_aligned': 0,
+                            'bilateral_slice_aligned': 0,
+                            'flat_color_blur': 0}
 
 _FORCE_PLAIN = False
 
@@ -489,3 +502,152 @@ def bilateral_cube_blur(grid: torch.Tensor, taps: Sequence[float]
     LAUNCHES['bilateral_cube_blur'] += 1
     _raise_on(rc, 'bilateral_cube_blur')
     return out
+
+
+# ---------------------------------------------------------------------------
+# aligned grid: nearest splat and slice on the pixel tiles' own cells
+# ---------------------------------------------------------------------------
+
+def _tile_rows(cell: torch.Tensor, t: int, gc3: int) -> torch.Tensor:
+    """[B,H,W] flat row of each pixel in an aligned grid viewed as
+    [B*nty*ntx*gc3, C]: its own tile's colour cell."""
+    h, w = cell.shape[1:]
+    return corner_rows(cell, t, -(-h // t), -(-w // t), gc3,
+                       own_tile=True)[0][0]
+
+
+def bilateral_splat_aligned_plain(x: torch.Tensor, cell: torch.Tensor,
+                                  t: int, gc: int, ref_round: bool = False
+                                  ) -> torch.Tensor:
+    """Plain aligned splat: one ``index_add_`` of every pixel into the
+    colour cell of its own tile.  ref_round rounds the values and the
+    finished grid to bf16 (mxu_grid.py :1197 and :1200; the sums between
+    are f32)."""
+    b, h, w, c = x.shape
+    nty, ntx = -(-h // t), -(-w // t)
+    if ref_round:
+        x = bf16_round(x)
+    grid = torch.zeros(b * nty * ntx * gc ** 3, c, dtype=torch.float32,
+                       device=x.device)
+    grid.index_add_(0, _tile_rows(cell, t, gc ** 3).reshape(-1),
+                    x.reshape(-1, c))
+    grid = grid.view(b, nty, ntx, gc, gc, gc, c)
+    return bf16_round(grid) if ref_round else grid
+
+
+def _check_aligned(x: torch.Tensor, cell: torch.Tensor) -> None:
+    _check(x, 'x', torch.float32, 4)
+    _check(cell, 'cell', torch.int32, 3)
+    if tuple(cell.shape) != tuple(x.shape[:3]):
+        raise ValueError(f'cell {tuple(cell.shape)} vs x {tuple(x.shape)}')
+
+
+def bilateral_splat_aligned(x: torch.Tensor, cell: torch.Tensor, t: int,
+                            gc: int) -> torch.Tensor:
+    """x [B,H,W,C] f32, cell [B,H,W] int32 -> aligned grid
+    [B,nty,ntx,gc,gc,gc,C] (one launch; atomics, so equal to the plain
+    version to f32 rounding)."""
+    if not _use_kernel(x, cell):
+        return bilateral_splat_aligned_plain(x, cell, t, gc)
+    _check_aligned(x, cell)
+    b, h, w, c = x.shape
+    nty, ntx = -(-h // t), -(-w // t)
+    grid = torch.zeros((b, nty, ntx, gc, gc, gc, c), dtype=torch.float32,
+                       device=x.device)
+    fn = _build.entry('bilateral_splat_aligned',
+                      (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P))
+    rc = fn(x.data_ptr(), cell.data_ptr(), grid.data_ptr(), b, h, w, c, t,
+            nty, ntx, gc ** 3, _stream())
+    LAUNCHES['bilateral_splat_aligned'] += 1
+    _raise_on(rc, 'bilateral_splat_aligned')
+    return grid
+
+
+def bilateral_slice_aligned_plain(grid: torch.Tensor, cell: torch.Tensor,
+                                  t: int) -> torch.Tensor:
+    """Plain aligned slice: an advanced-index gather of each pixel's row."""
+    c = grid.shape[6]
+    rows = _tile_rows(cell, t, grid.shape[3] ** 3)
+    return grid.reshape(-1, c)[rows]
+
+
+def bilateral_slice_aligned(grid: torch.Tensor, cell: torch.Tensor, t: int
+                            ) -> torch.Tensor:
+    """aligned grid [B,nty,ntx,gc,gc,gc,C] f32, cell [B,H,W] int32 ->
+    [B,H,W,C] (one launch; bit-equal to the plain version)."""
+    if not _use_kernel(grid, cell):
+        return bilateral_slice_aligned_plain(grid, cell, t)
+    gc, c = _check_grid(grid)
+    _check(cell, 'cell', torch.int32, 3)
+    b, nty, ntx = grid.shape[:3]
+    h, w = cell.shape[1:]
+    if cell.shape[0] != b or nty != -(-h // t) or ntx != -(-w // t):
+        raise ValueError(f'cell {tuple(cell.shape)} does not fit aligned '
+                         f'grid {tuple(grid.shape)} at t={t}')
+    out = torch.empty((b, h, w, c), dtype=torch.float32, device=grid.device)
+    fn = _build.entry('bilateral_slice_aligned',
+                      (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P))
+    rc = fn(grid.data_ptr(), cell.data_ptr(), out.data_ptr(), b, h, w, c, t,
+            nty, ntx, gc ** 3, _stream())
+    LAUNCHES['bilateral_slice_aligned'] += 1
+    _raise_on(rc, 'bilateral_slice_aligned')
+    return out
+
+
+# ---------------------------------------------------------------------------
+# scatter grid: flat colour-axis blur
+# ---------------------------------------------------------------------------
+
+_FLAT_BLUR_MAX_TAPS = 17
+
+Pass = Tuple[Sequence[float], int]      # (taps, element stride)
+
+
+def flat_color_blur_plain(x: torch.Tensor, passes: Sequence[Pass]
+                          ) -> torch.Tensor:
+    """Plain chain of flat convolutions along the last dim of x [..., L]:
+    per pass ``out[f] = sum_j taps[j] * x[f + (j - r) * stride]``, zero
+    outside [0, L), the taps added in order j = 0, 1, ... (the
+    reference's ``_flat_conv_last``, meanfield.py:124).  A colour axis
+    embedded in the flat dim has no zero fill of its own: a shift bleeds
+    into the next row, which the scatter grid's margin cells absorb."""
+    n = x.shape[-1]
+    for taps, stride in passes:
+        r = (len(taps) - 1) // 2
+        padded = torch.nn.functional.pad(x, (r * stride, r * stride))
+        out = float(taps[0]) * padded[..., 0:n]
+        for j in range(1, 2 * r + 1):
+            out = out + float(taps[j]) * padded[..., j * stride:
+                                                j * stride + n]
+        x = out
+    return x
+
+
+def flat_color_blur(x: torch.Tensor, passes: Sequence[Pass]
+                    ) -> torch.Tensor:
+    """x [n_stripes, L] f32 -> the same shape after the passes, one launch
+    per pass between two scratch buffers (bit-equal to the plain
+    version)."""
+    if not _use_kernel(x):
+        return flat_color_blur_plain(x, passes)
+    _check(x, 'x', torch.float32, 2)
+    for taps, stride in passes:
+        if not 1 <= len(taps) <= _FLAT_BLUR_MAX_TAPS or len(taps) % 2 == 0:
+            raise ValueError(f'flat_color_blur takes an odd number of taps '
+                             f'up to {_FLAT_BLUR_MAX_TAPS}, got {len(taps)}')
+        if stride < 1:
+            raise ValueError(f'stride {stride} < 1')
+    fn = _build.entry('flat_color_blur',
+                      (_P, _P, _LL, _LL, _LL, ctypes.POINTER(_F), _I, _P))
+    n_stripes, length = x.shape
+    bufs = [torch.empty_like(x) for _ in range(min(2, len(passes)))]
+    src = x
+    for k, (taps, stride) in enumerate(passes):
+        dst = bufs[k % 2]
+        ctaps = (_F * len(taps))(*(float(v) for v in taps))
+        rc = fn(src.data_ptr(), dst.data_ptr(), n_stripes, length,
+                int(stride), ctaps, len(taps), _stream())
+        LAUNCHES['flat_color_blur'] += 1
+        _raise_on(rc, 'flat_color_blur')
+        src = dst
+    return src

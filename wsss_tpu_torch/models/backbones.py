@@ -145,14 +145,15 @@ class M7Classifier(_Classifier):
 
 
 def build_classifier(model_type: str, num_classes: int) -> _Classifier:
-    """'VGG16' or 'M7', both with BatchNorm."""
+    """'VGG16', 'M7' or 'X1.7' (the M7 trunk with ADP's 51-way head), all
+    with BatchNorm."""
     mt = model_type.upper()
     if mt == 'VGG16':
         return VGG16Classifier(num_classes)
-    if mt == 'M7':
+    if mt in ('M7', 'X1.7'):
         return M7Classifier(num_classes)
     raise ValueError(f'model_type {model_type!r} is not ported yet '
-                     "(ported: 'VGG16', 'M7')")
+                     "(ported: 'VGG16', 'M7', 'X1.7')")
 
 
 @torch.no_grad()

@@ -39,6 +39,10 @@ A filter takes one of the reference's three kernel routes, chosen as
 
 The v1 kernels sum in a fixed order (no atomics): a v1 filter gives the
 same bits on every run.
+
+``AlignedBilateralGrid`` is the reference's study variant (nearest splat
+and slice on cells of sxy/2 centred on the pixel tiles): no entry point
+builds it there, and none does here.
 """
 from __future__ import annotations
 
@@ -275,4 +279,115 @@ class MXUBilateralGrid:
             out = K.bilateral_slice_plain(grid, self.cell, t)
         else:
             out = K.bilateral_slice(grid, self.cell, t)
+        return out[..., :cin]
+
+
+# ---------------------------------------------------------------------------
+# Aligned grid: nearest splat/slice on sxy/2 cells
+# ---------------------------------------------------------------------------
+
+def aligned_applicable(sxy: float, srgb: float, n_ch: int = 32,
+                       cell_mult: float = 1.0) -> bool:
+    """The aligned variant needs an even integer sxy (cells of sxy/2
+    centred on the tiles) and the colour-cube limits of the reference."""
+    t0 = int(round(sxy))
+    if abs(sxy - t0) > 1e-6 or t0 % 2 or not 3 <= t0 // 2 <= 48:
+        return False
+    gc, _ = grid_dims(srgb, cell_mult)
+    return (gc * gc <= 4096 and gc * 4 * n_ch <= 4096
+            and gc ** 3 * 4 * n_ch <= 2_500_000)
+
+
+class AlignedBilateralGrid:
+    """Nearest-splat / nearest-slice bilateral grid on cells of sxy/2,
+    centred on the pixel tiles (counterpart of the reference's class of
+    this name, mxu_grid.py:1230): each tile touches one colour cube, so
+    corner weights and the fold disappear; the 2x finer spatial sampling
+    makes up for the nearest interpolation, and the blur sigma absorbs
+    its variance, sqrt(k^2 - 1/6) cells with k = 2.
+
+    The grid is ``[B, nty, ntx, gc, gc, gc, C]`` f32 with the colour cell
+    ``(cr * gc + cg) * gc + cb``, the reference's m-order.  The reference
+    pads ntx to a multiple of its column group; those tiles hold zeros,
+    which a zero-fill blur cannot see, so the port has none.
+
+    filter = ``bilateral_splat_aligned`` -> Kronecker spatial product ->
+    ``bilateral_cube_blur`` -> ``bilateral_slice_aligned``.
+    ref_round=True runs the plain versions and rounds to bf16 where the
+    reference does: the splat's input and output, the spatial product's
+    operands and output, the cube blur's output."""
+
+    K_SP = 2
+
+    def __init__(self, imgs: torch.Tensor, sxy: float, srgb: float,
+                 n_ch: int, cell_mult: float = 1.0, ref_round: bool = False):
+        if imgs.ndim != 4:
+            raise ValueError('AlignedBilateralGrid wants [B,H,W,3]')
+        if not aligned_applicable(sxy, srgb, n_ch, cell_mult):
+            raise ValueError(f'aligned grid inapplicable for sxy={sxy} '
+                             f'srgb={srgb} n_ch={n_ch}')
+        b, h, w = imgs.shape[:3]
+        t = int(round(sxy)) // self.K_SP
+        self.bhw = (b, h, w)
+        self.t = t
+        self.n_ch = n_ch
+        self.ref_round = ref_round
+        self.nty, self.ntx = -(-h // t), -(-w // t)
+        gc, _ = grid_dims(srgb, cell_mult)
+        self.gc = gc
+        sig_col = float(np.sqrt(max((1.0 / cell_mult) ** 2 - 1.0 / 6.0,
+                                    0.05)))
+        idx = torch.clamp(torch.round(imgs.to(torch.float32)
+                                      / (srgb * cell_mult)),
+                          0, gc - 1).to(torch.int32)
+        self.cell = ((idx[..., 0] * gc + idx[..., 1]) * gc
+                     + idx[..., 2]).contiguous()          # [B,H,W] int32
+        # nearest splat + slice: 1/12 + 1/12 interpolation variance
+        sig_sp = float(np.sqrt(self.K_SP ** 2 - 1.0 / 6.0))
+        rad_sp = max(2, int(np.ceil(3.0 * sig_sp)))
+        self.blur_sp = torch.as_tensor(
+            np.kron(_band_mat(self.nty, sig_sp, rad_sp),
+                    _band_mat(self.ntx, sig_sp, rad_sp)).astype(np.float32),
+            device=imgs.device)                     # [nty*ntx, nty*ntx]
+        self.taps = _blur_taps(sig_col)[_BLUR_RADIUS:]
+
+    def _blur(self, grid: torch.Tensor) -> torch.Tensor:
+        b = grid.shape[0]
+        flat = grid.reshape(b, self.nty * self.ntx, -1)
+        if self.ref_round:      # bf16 operands and output (mxu_grid:1376)
+            flat = K.bf16_round(torch.matmul(K.bf16_round(self.blur_sp),
+                                             flat))
+            return K.bilateral_cube_blur_plain(flat.view(grid.shape),
+                                               self.taps, ref_round=True)
+        flat = torch.matmul(self.blur_sp, flat)
+        return K.bilateral_cube_blur(flat.view(grid.shape), self.taps)
+
+    def filter(self, x: torch.Tensor) -> torch.Tensor:
+        """Approximate K @ x per image; x [B, H, W, C'] with C' <= n_ch
+        (fewer channels are zero-padded through the grid and cut off)."""
+        if tuple(x.shape[:3]) != self.bhw:
+            raise ValueError(f'filter input {tuple(x.shape)} does not '
+                             f'match the guide {self.bhw}')
+        cin = x.shape[-1]
+        if cin > self.n_ch:
+            raise ValueError(f'filter input has {cin} channels; grid '
+                             f'built for {self.n_ch}')
+        if self.gc ** 3 * self.n_ch > _CUBE_BLUR_MAX:
+            raise ValueError(
+                f'colour cube of gc^3 * C = {self.gc ** 3 * self.n_ch} '
+                f'elements exceeds {_CUBE_BLUR_MAX}: the reference blurs '
+                'it with band-matrix products, which the port has not '
+                '(`aligned_applicable` admits at most 625 000)')
+        x = x.to(torch.float32)
+        if cin < self.n_ch:
+            x = torch.nn.functional.pad(x, (0, self.n_ch - cin))
+        x = x.contiguous()
+        if self.ref_round:
+            grid = self._blur(K.bilateral_splat_aligned_plain(
+                x, self.cell, self.t, self.gc, ref_round=True))
+            out = K.bilateral_slice_aligned_plain(grid, self.cell, self.t)
+        else:
+            grid = self._blur(K.bilateral_splat_aligned(
+                x, self.cell, self.t, self.gc))
+            out = K.bilateral_slice_aligned(grid, self.cell, self.t)
         return out[..., :cin]

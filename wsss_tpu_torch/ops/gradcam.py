@@ -1,5 +1,5 @@
 """Grad-CAM of the port (counterpart of ``wsss_tpu/ops/gradcam.py``
-``gradcam_weights`` and ``grad_cam_confidence``).
+``gradcam_weights``, ``grad_cam_confidence`` and ``cs_gradcam``).
 
 The Grad-CAM weights are input-independent: computed once on a zero
 image.  Per class c, the gradient of the pre-sigmoid logit y_c with
@@ -53,3 +53,22 @@ def grad_cam_confidence(feats: torch.Tensor, weights: torch.Tensor,
         torch.amax(cams, dim=(1, 2, 3), keepdim=True), min=1e-7)
     scale = conf_scores * is_pass.to(conf_scores.dtype)
     return cams * scale[:, None, None, :]
+
+
+def cs_gradcam(gradcam: torch.Tensor, other_ind: int = -1) -> torch.Tensor:
+    """Class-specific Grad-CAM: winner-take-all max-minus-second-max maps
+    (03c_hsn/utilities.py:367-397).
+
+    gradcam: [B,H,W,C] channel-last.  other_ind: index of the 'Other'
+    channel that passes through unchanged (ADP's functional types), or -1
+    for none."""
+    top2 = torch.topk(gradcam, 2, dim=-1).values
+    maxdiff = top2[..., 0] - top2[..., 1]
+    # where the maximum is tied maxdiff is 0, so which index wins is moot
+    maxind = torch.argmax(gradcam, dim=-1)
+    onehot = torch.nn.functional.one_hot(maxind, gradcam.shape[-1]).to(
+        gradcam.dtype)
+    cs = maxdiff[..., None] * onehot
+    if other_ind >= 0:
+        cs[..., other_ind] = gradcam[..., other_ind]
+    return cs
