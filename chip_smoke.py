@@ -9,26 +9,31 @@ Phases, in order; any failure exits non-zero and prints no result:
   3. kernels — each kernel against its plain PyTorch version at the
                shapes its paths give it: the v2 route's three at the VOC
                main path's (batch 8, 64x64 guide, C 21 and C 1) and at SEC
-               prediction's (one 375x500 image, 38x50 guide); the v1
+               prediction's (one 375x500 image, 38x50 guide), the colour
+               blur also at the v2 route's largest cube (gc 24, C 32: a
+               plan of channel groups); the v1
                route's four and the slice at SEC prediction's (5x7 ragged
                tiles, C 21 and C 1), at the wide path's (batch 2, 32x32
                guide, C 40 and C 1) and, as an extra, at batch 8 (C 21 and
                C 40); the cube blur on a cube too large for one block
                (gc 52).  Error against the stated tolerance (the v1
-               kernels: bit-equal, and the same bits on two runs), and
+               kernels and both colour blurs: bit-equal, and the tile
+               splat the same bits on two runs), and
                times from CUDA events (median) beside the bound and a
-               library call; the scatter grid's flat colour blur in its
-               fused and split forms on the IRNet label CRF's grid
-               (9 x 9 x 56^3 cells, C 21) and on the VOC HistoSegNet
-               config's scatter grid (C 21 split, C 1 fused); the aligned
+               library call; the one-launch colour blur against the
+               one-pass cube blur on the v1 shapes (B 8 223 MB, wide
+               33 MB, SEC 4 MB); the scatter grid's flat colour blur in
+               its fused and split forms on the IRNet label CRF's grid
+               (9 x 9 x 56^3 cells, C 21 and C 1) and on the VOC
+               HistoSegNet config's scatter grid (C 21, C 1); the aligned
                grid's splat and slice at batch 8, 321^2, t 20, gc 16 and
                gc 21, and on a ragged 13x17 image;
   4. main    — HSNSegmenter.segment_batch for VOC2012 with random-init
                full-width VGG16 fg and bg classifiers at 321^2, batch 8,
                the production CRF config: img/s, CAM- and CRF-stage ms,
                launch counts of the timed run (the v2 route's three must
-               be > 0), label agreement with the same batch through the
-               plain versions;
+               be > 0, the colour blur once a filter), label agreement
+               with the same batch through the plain versions;
   5. sec     — predict_image (SEC, full-width DeepLab-LargeFOV, random
                weights) on 4 VOC-sized images at 321: img/s, FCN and CRF
                ms and launch counts on the default (v2) route, then on
@@ -42,11 +47,11 @@ Phases, in order; any failure exits non-zero and prints no result:
                images of 21 labels on the card (the scatter grid; the
                host's permutohedral library is built first where it can
                be, and must not draw card tensors away): launch counts of
-               the flat colour blur read right after the call, label
-               agreement with the plain versions; then, counted apart,
-               blur_color_axes (split form) on the path's own grids
-               against the fused form; one image as CPU tensors through
-               the native route where its library builds;
+               the flat colour blur read right after the call (one a
+               filter), label agreement with the plain versions; then,
+               counted apart, blur_color_axes (split form) on the path's
+               own grids against the fused form; one image as CPU tensors
+               through the native route where its library builds;
   8. adp_hsn — ADPHSNSegmenter.segment_batch, full-width X1.7 (51-way),
                random weights, batch 8 at 224^2, the default ADP CRFs
                (direct window): img/s, the CRF's share, the window
@@ -92,6 +97,25 @@ def cuda_ms(torch, fn, reps=30, warmup=3):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def burst_ms(torch, fn, burst=10, reps=5):
+    """Median ms a call over reps bursts of `burst` calls back to back,
+    each burst timed by CUDA events: the device's time, without the
+    host's work a call (~0.05 ms) that cuda_ms also counts."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(burst):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / burst)
     return float(np.median(times))
 
 
@@ -177,7 +201,10 @@ def hold_v2_kernels(torch, K, geo, x, label):
     errs = {}
     # splat: atomics sum in a run-dependent order -> f32 rounding;
     # blur and slice use the plain version's operation order with
-    # round-to-nearest intrinsics -> bit-equal expected
+    # round-to-nearest intrinsics -> bit-equal expected, and the blur is
+    # held to it
+    check(torch.equal(got_b, ref_b),
+          f'bilateral_color_blur {label} is not bit-equal to plain')
     for name, got, ref, tol in (
             ('bilateral_splat', got_s, ref_s, 1e-5),
             ('bilateral_color_blur', got_b, ref_b, 1e-6),
@@ -259,6 +286,8 @@ def phase_kernels(torch):
         results['bilateral_color_blur'].update(
             ms=cuda_ms(torch, lambda: K.bilateral_color_blur(ref_s,
                                                              geo.taps)),
+            device_ms=burst_ms(torch, lambda: K.bilateral_color_blur(
+                ref_s, geo.taps)),
             plain_ms=cuda_ms(torch, lambda: K.bilateral_color_blur_plain(
                 ref_s, geo.taps), reps=20),
             library_ms=cuda_ms(torch, blur_lib), bound_ms=bb, bound_by=bf)
@@ -289,7 +318,9 @@ def phase_kernels(torch):
                 g_sp, cell, t)),
             library_ms=cuda_ms(torch, slice_lib), bound_ms=bb, bound_by=bf)
     for name, r in results.items():
-        print(f'[kernels] {name} C=21: {r["ms"]:.4f} ms, plain '
+        burst = (f' ({r["device_ms"]:.4f} ms a call in bursts of 10)'
+                 if 'device_ms' in r else '')
+        print(f'[kernels] {name} C=21: {r["ms"]:.4f} ms{burst}, plain '
               f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} ms, '
               f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]})')
 
@@ -328,6 +359,28 @@ def phase_kernels(torch):
                 max_abs_err=errs[name], ms=ms, bound_ms=bb, bound_by=bf)
             print(f'[kernels] {name} {label}: {ms:.4f} ms, bound '
                   f'{bb:.4f} ms ({bf})')
+
+    # the v2 route's largest cube: gc 24 (srgb 255/23), C 32; its planes
+    # (74 KB) take a plan of channel groups
+    gc, c = 24, 32
+    check(mxu_grid.v2_eligible(255.0 / (gc - 1), c)
+          and not mxu_grid.v2_eligible(255.0 / gc, 1)
+          and not mxu_grid.v2_eligible(255.0 / (gc - 1), c + 1),
+          'the v2 route\'s largest (gc, C) changed')
+    plan = K.color_blur_plan(gc, c)
+    check(plan.groups > 1, f'gc {gc} C {c}: plan {plan}')
+    grid = torch.rand((2, 3, 3, gc, gc, gc, c), generator=gen, device=dev)
+    label = (f'B=2 3x3 nodes gc={gc} C={c} (channel groups '
+             f'{plan.channel_groups()})')
+    err = hold_bit_equal(torch, 'bilateral_color_blur', label,
+                         K.bilateral_color_blur(grid, geo.taps),
+                         K.bilateral_color_blur_plain(grid, geo.taps))
+    ms = cuda_ms(torch, lambda: K.bilateral_color_blur(grid, geo.taps))
+    bb, bf = bound_ms(2 * grid.numel() * 4, 3 * 9 * grid.numel())
+    results['bilateral_color_blur']['cases']['v2_largest'] = dict(
+        max_abs_err=err, ms=ms, bound_ms=bb, bound_by=bf)
+    print(f'[kernels] bilateral_color_blur {label}: {ms:.4f} ms, bound '
+          f'{bb:.4f} ms ({bf})')
     return results
 
 
@@ -446,7 +499,7 @@ def hold_v1_kernels(torch, K, geo, x, label):
             fold, taps), reps=10),
         library_ms=cuda_ms(torch, blur_lib, reps=5, warmup=1),
         bound_ms=bb, bound_by=bf,
-        three_pass_ms=cuda_ms(
+        color_blur_ms=cuda_ms(
             torch, lambda: K.bilateral_color_blur(fold, taps)))
     rows4 = torch.cat([r.reshape(-1) for r, _ in
                        K.corner_rows(cell, t, gy, gx, gc3)])
@@ -465,10 +518,10 @@ def hold_v1_kernels(torch, K, geo, x, label):
         print(f'[kernels] {name} {label}: {r["ms"]:.4f} ms, plain {plain}, '
               f'library {lib}, bound {r["bound_ms"]:.4f} ms '
               f'({r["bound_by"]})')
-    print(f'[kernels] colour blur {label}: one pass (bilateral_cube_blur) '
-          f'{res["bilateral_cube_blur"]["ms"]:.4f} ms, three passes '
-          f'(bilateral_color_blur) '
-          f'{res["bilateral_cube_blur"]["three_pass_ms"]:.4f} ms')
+    print(f'[kernels] colour blur {label} ({gbytes / 1e6:.0f} MB): '
+          f'bilateral_color_blur '
+          f'{res["bilateral_cube_blur"]["color_blur_ms"]:.4f} ms against '
+          f'bilateral_cube_blur {res["bilateral_cube_blur"]["ms"]:.4f} ms')
     return res
 
 
@@ -578,6 +631,12 @@ def phase_main(torch):
           f'({1e3 * dt / n_batches:.2f} ms/batch)')
     print(f'[main] launches in the timed run: {launches}')
     check_launches(launches, V2_KERNELS, 'the main path')
+    # one launch a filter: a C 1 normalizer and one message a mean-field
+    # iteration
+    want = n_batches * (seg.cfg.iterations + 1)
+    check(launches['bilateral_color_blur'] == want,
+          f'bilateral_color_blur launched {launches["bilateral_color_blur"]}'
+          f' times on the main path, expected {want}')
 
     imgs = batches[0].to(torch.float32)
     cam_ms = cuda_ms(torch, lambda: seg.probs(imgs), reps=5, warmup=1)
@@ -662,6 +721,11 @@ def phase_sec(torch):
         return fcn, crf, probs, native[None]
 
     labels_v2, launches_v2 = run('the SEC path, default route', V2_KERNELS)
+    want = len(images) * (cfg.iterations + 1)           # one a filter
+    check(launches_v2['bilateral_color_blur'] == want,
+          f'bilateral_color_blur launched '
+          f'{launches_v2["bilateral_color_blur"]} times on the SEC default '
+          f'route, expected {want}')
     fcn_ms, crf_ms, probs, guide = stage_ms()
     q_v2 = mean_field(probs, guide, cfg)
     print(f'[sec] default route: FCN {fcn_ms:.2f} ms, CRF {crf_ms:.2f} ms '
@@ -789,7 +853,10 @@ def hold_flat_blur(torch, bg, x, label, want_form, timed):
     K.reset_launch_counts()
     got_f, got_d = fused(), dispatch()
     torch.cuda.synchronize()
-    check(K.LAUNCHES['flat_color_blur'] == 6,        # 3 passes each
+    # one launch for the fused form's three passes, two for the split
+    # form's (2 passes on per-gr stripes, then 1)
+    check(K.LAUNCHES['flat_color_blur'] == (1 + 2 if want_form == 'split'
+                                            else 1 + 1),
           f'{label}: launches {dict(K.LAUNCHES)}')
     with K.plain_versions():
         ref_f, ref_d = fused(), dispatch()
@@ -814,6 +881,8 @@ def hold_flat_blur(torch, bg, x, label, want_form, timed):
     for name, r in res.items():
         r.update(ms=cuda_ms(torch, fns[name], reps=10), bound_ms=bb,
                  bound_by=bf)
+        if timed:
+            r['device_ms'] = burst_ms(torch, fns[name], burst=5, reps=3)
         if timed:
             with K.plain_versions():
                 r['plain_ms'] = cuda_ms(torch, fns[name], reps=5, warmup=1)
@@ -841,8 +910,10 @@ def hold_flat_blur(torch, bg, x, label, want_form, timed):
     for name, r in res.items():
         extra = (f', plain {r["plain_ms"]:.4f} ms, library (conv3d) '
                  f'{r["library_ms"]:.4f} ms' if timed else '')
-        print(f'[kernels] {name} {label}: {r["ms"]:.4f} ms{extra}, bound '
-              f'{r["bound_ms"]:.4f} ms ({r["bound_by"]})')
+        burst = (f' ({r["device_ms"]:.4f} ms a call in bursts of 5)'
+                 if 'device_ms' in r else '')
+        print(f'[kernels] {name} {label}: {r["ms"]:.4f} ms{burst}{extra}, '
+              f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]})')
     return res
 
 
@@ -1045,11 +1116,11 @@ def phase_irn_label(torch):
         del g, split, full, a
     torch.cuda.synchronize()
     check_launches(launches, SCATTER, 'the irn_label path')
-    want = 3 * (cfg.iterations + 1) * n_img
-    check(launches['flat_color_blur'] == want and n_split == 6,
+    want = (cfg.iterations + 1) * n_img                 # one a filter
+    check(launches['flat_color_blur'] == want and n_split == 4,
           f'flat_color_blur launches {launches["flat_color_blur"]} from '
           f'crf_label_refine and {n_split} from blur_color_axes, expected '
-          f'{want} and 6')
+          f'{want} and 4')
     print(f'[irn_label] blur_color_axes (split form), called by this '
           f'script on the path\'s grids: {n_split} flat_color_blur launches')
     check(refined.shape == labels.shape and refined.dtype == torch.int32
@@ -1274,8 +1345,8 @@ def main():
                 'the irn_label path\'s grids; no entry point of the port '
                 'runs the split form'}
                if name == 'flat_color_blur_split' else {}),
-            **{k: r[k] for k in ('shape', 'cases', 'three_pass_ms',
-                                 'gc52_ms') if k in r}))
+            **{k: r[k] for k in ('shape', 'cases', 'device_ms',
+                                 'color_blur_ms', 'gc52_ms') if k in r}))
     print('kernels launched on the paths: '
           + ', '.join(k['name'] for k in kernels))
     print(f'[result] card: {smi}')

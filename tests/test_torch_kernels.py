@@ -147,7 +147,7 @@ def test_kernels_match_plain_on_card(cuda_device, c):
                        K.bilateral_slice_plain(ref, g.cell, g.t))
     assert K.LAUNCHES['bilateral_splat'] == before['bilateral_splat'] + 1
     assert (K.LAUNCHES['bilateral_color_blur']
-            == before['bilateral_color_blur'] + 3)
+            == before['bilateral_color_blur'] + 1)       # one a call
     with K.plain_versions():
         plain = g.filter(x)
     torch.testing.assert_close(g.filter(x), plain, rtol=1e-5, atol=1e-5)
@@ -202,6 +202,25 @@ def test_cube_blur_cuts_a_large_cube_on_card(cuda_device):
                       device=cuda_device)
     assert torch.equal(K.bilateral_fold_blur(part, taps),
                        K.bilateral_fold_blur_plain(part, taps))
+
+
+@pytest.mark.cuda
+def test_color_blur_channel_groups_on_card(cuda_device):
+    """The v2 route's largest plane (gc 24, C 32: 74 KB) does not fit a
+    ring of whole planes: the plan cuts the channels into groups of
+    11, 11 and 10, copied as runs; still one launch and bit-equal.  C 30
+    gives runs that are not 16-byte aligned."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    taps = mxu_grid._blur_taps(0.913)[2:]
+    for c in (32, 30):
+        plan = K.color_blur_plan(24, c)
+        assert plan.groups > 1, plan
+        grid = torch.rand((1, 2, 3, 24, 24, 24, c), generator=gen,
+                          device=cuda_device)
+        before = K.LAUNCHES['bilateral_color_blur']
+        got = K.bilateral_color_blur(grid, taps)
+        assert K.LAUNCHES['bilateral_color_blur'] == before + 1
+        assert torch.equal(got, K.bilateral_color_blur_plain(grid, taps)), c
 
 
 @pytest.mark.cuda
@@ -261,7 +280,9 @@ def test_aligned_kernels_match_plain_on_card(cuda_device, c):
 def test_flat_color_blur_matches_plain_on_card(cuda_device):
     """Both forms of the scatter grid's colour blur on a (3, 2, 24^3)
     grid of 21 channels, with three different tap sets: bit-equal to the
-    plain chain, one launch a pass."""
+    plain chain; the 3-pass chain in one launch, the split form in two
+    (2 passes on per-gr stripes, then 1).  Then stripes whose windows and
+    steps are ragged, both walked and cut into tiles, and wider taps."""
     from wsss_tpu_torch.ops.crf import meanfield as mf
     from wsss_tpu_torch.ops.crf import pallas_blur
     gc, c = 24, 21
@@ -272,10 +293,10 @@ def test_flat_color_blur_matches_plain_on_card(cuda_device):
     strides = (gc * gc * c, gc * c, c)
     before = dict(K.LAUNCHES)
     fused = pallas_blur.color_blur_fused(grid, ks, strides)
-    assert K.LAUNCHES['flat_color_blur'] == before['flat_color_blur'] + 3
+    assert K.LAUNCHES['flat_color_blur'] == before['flat_color_blur'] + 1
     split = pallas_blur.blur_color_axes(grid, ks, strides,
                                         (3, 2, gc, gc, gc))
-    assert K.LAUNCHES['flat_color_blur'] == before['flat_color_blur'] + 6
+    assert K.LAUNCHES['flat_color_blur'] == before['flat_color_blur'] + 3
     with K.plain_versions():
         assert torch.equal(fused, pallas_blur.color_blur_fused(grid, ks,
                                                                strides))
@@ -285,6 +306,20 @@ def test_flat_color_blur_matches_plain_on_card(cuda_device):
     a = fused.view(3, 2, gc, gc, gc, c)[inner]
     b = split.view(3, 2, gc, gc, gc, c)[inner]
     assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+    # ragged windows and steps: a stripe no multiple of the stride, cut
+    # into tiles (stride 37) or walked along (stride 2100)
+    for stride, length in ((37, 1000), (2100, 10000)):
+        x = torch.rand((5, length), generator=gen, device=cuda_device)
+        chain = [(ks[0], stride), ([0.25, 0.5, 0.25], 2),
+                 (list(range(1, 18)), 1)]
+        plan = K.flat_blur_plan(5, length, chain[:2])
+        assert plan.tile == (stride < 2048)
+        assert plan.cut()[-1][1] < plan.window and length % stride
+        for passes in (chain[:2], chain, chain[2:], [(ks[1], length)]):
+            n = K.LAUNCHES['flat_color_blur']
+            got = K.flat_color_blur(x, passes)
+            assert K.LAUNCHES['flat_color_blur'] == n + 1
+            assert torch.equal(got, K.flat_color_blur_plain(x, passes))
     with pytest.raises(ValueError, match='odd number of taps'):
         K.flat_color_blur(grid.view(6, f), [([1.0, 0.5], 1)])
     with pytest.raises(ValueError, match='want 2 dims'):
@@ -313,4 +348,4 @@ def test_mean_field_stays_on_the_card(cuda_device, monkeypatch):
     before = K.LAUNCHES['flat_color_blur']
     q = mf.mean_field(probs, img, cfg)
     assert q.is_cuda and torch.isfinite(q).all()
-    assert K.LAUNCHES['flat_color_blur'] == before + 6
+    assert K.LAUNCHES['flat_color_blur'] == before + 2     # one a filter

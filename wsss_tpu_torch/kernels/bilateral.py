@@ -48,14 +48,16 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Dict, Sequence, Tuple
+import dataclasses
+import functools
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from wsss_tpu_torch.kernels import build as _build
 
 # launches of each kernel, counted where the wrapper launches it (one per
-# CUDA launch: bilateral_color_blur launches three, one per colour axis)
+# CUDA launch; every wrapper launches its kernel once a call)
 LAUNCHES: Dict[str, int] = {'bilateral_splat': 0,
                             'bilateral_color_blur': 0,
                             'bilateral_slice': 0,
@@ -121,6 +123,19 @@ def _raise_on(rc: int, name: str) -> None:
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _blocks(units: int, blocks_per_sm: int, device: torch.device) -> int:
+    """Persistent blocks of a launch: as many as the card holds at once,
+    at most one a unit."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return max(1, min(units, _sm_count(index) * blocks_per_sm))
 
 
 def _pixel_geometry(h: int, w: int, t: int, device):
@@ -246,25 +261,129 @@ def _check_grid(grid: torch.Tensor):
     return gc, c
 
 
+# Shared memory on the H100: what one block may use (dynamic and static
+# together), and an SM's whole, of which each resident block costs 1 KB
+# more than it asks for.
+SMEM_BLOCK = 232448
+_SMEM_SM = 233472
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _pow2(n: int) -> int:
+    """The least power of two >= n."""
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _blocks_per_sm(smem_bytes: int, threads: int) -> int:
+    return max(1, min(_SMEM_SM // (smem_bytes + 1024), 2048 // threads, 32))
+
+
+# the fewest channels of a group when a plane of all C does not fit:
+# 8 floats are one 32-byte sector
+_MIN_GROUP = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class ColorBlurPlan:
+    """How ``bilateral_color_blur`` cuts a [.., gc, gc, gc, C] grid.
+
+    A block streams cr-planes of `nc` channels (all C: one contiguous span
+    a plane; fewer: gc^2 runs of nc channels) through a ring of
+    5 + in_flight slots of `slot` floats, and blurs each output plane in
+    the work plane A ([gc + 4][gc][nc] from float `buf_a` on, 3 floats of
+    room to align it; two zero cg rows at each end)."""
+    gc: int
+    c: int
+    nc: int
+    in_flight: int
+    slot: int
+    buf_a: int
+    smem_bytes: int
+    threads: int
+    blocks_per_sm: int
+
+    @property
+    def groups(self) -> int:
+        return -(-self.c // self.nc)
+
+    @property
+    def ring(self) -> int:
+        return 5 + self.in_flight
+
+    def channel_groups(self) -> List[Tuple[int, int]]:
+        """(first channel, channels) of each group, in block order."""
+        return [(c0, min(self.nc, self.c - c0))
+                for c0 in range(0, self.c, self.nc)]
+
+
+# the largest gc the kernel takes (a register a cb cell): the v2 route's
+_COLOR_BLUR_MAX_GC = 24
+
+
+@functools.lru_cache(maxsize=None)
+def color_blur_plan(gc: int, c: int) -> ColorBlurPlan:
+    """The geometry of ``bilateral_color_blur`` for gc colour cells an
+    axis and C channels: whole planes of all C where their ring fits a
+    block, else the fewest groups of >= 8 consecutive channels that fit;
+    then as many planes in flight (3, 2, 1) as fit.  ValueError for gc
+    over 24 or when no group of 8 channels fits."""
+    if not 1 <= gc <= _COLOR_BLUR_MAX_GC or c < 1:
+        raise ValueError(f'bilateral_color_blur takes gc in 1..'
+                         f'{_COLOR_BLUR_MAX_GC} (the v2 route\'s) and C >= 1, '
+                         f'got gc={gc}, C={c}')
+
+    def fit(nc):
+        plane = gc * gc * nc
+        # a whole plane lands at a 0-3 float offset in its slot
+        slot = _round4(plane + 3) if nc == c else _round4(plane)
+        work = (gc + 4) * gc * nc + 3
+        for f in (3, 2, 1):
+            buf_a = (5 + f) * slot
+            smem = 4 * (buf_a + work)
+            if smem <= SMEM_BLOCK:
+                # one thread a (cg, channel) row, and at most 8 cells each
+                # in the cr pass
+                threads = min(512, max(64, _pow2(max(gc * nc, plane // 8))))
+                return ColorBlurPlan(gc, c, nc, f, slot, buf_a, smem, threads,
+                                     _blocks_per_sm(smem, threads))
+        return None
+
+    for nc in range(c, min(c, _MIN_GROUP) - 1, -1):
+        if fit(nc) is None:
+            continue
+        # the same number of groups, as even as >= 8 channels allow
+        even = -(-c // -(-c // nc))
+        return fit(even if even >= min(c, _MIN_GROUP) else nc)
+    raise ValueError(f'bilateral_color_blur: no plan fits a block of '
+                     f'{SMEM_BLOCK} bytes for gc={gc}, C={c}: even '
+                     f'{min(c, _MIN_GROUP)} channels a group do not')
+
+
 def bilateral_color_blur(grid: torch.Tensor, taps: Sequence[float]
                          ) -> torch.Tensor:
     """grid [B,gy,gx,gc,gc,gc,C] f32 -> the same shape, blurred along the
-    three colour axes (three launches, one per axis)."""
+    three colour axes in one launch that reads the grid once and writes
+    it once (bit-equal to the plain version)."""
     if not _use_kernel(grid):
         return bilateral_color_blur_plain(grid, taps)
     gc, c = _check_grid(grid)
+    plan = color_blur_plan(gc, c)
     t0, t1, t2 = (float(v) for v in taps)
+    out = torch.empty_like(grid)
+    nodes = grid.shape[0] * grid.shape[1] * grid.shape[2]
     fn = _build.entry('bilateral_color_blur',
-                      (_P, _P, _LL, _LL, _I, _F, _F, _F, _P))
-    a = torch.empty_like(grid)
-    bufs = (grid, a, torch.empty_like(grid), a)
-    n = grid.numel()
-    for k, stride in enumerate((gc * gc * c, gc * c, c)):     # cr, cg, cb
-        rc = fn(bufs[k].data_ptr(), bufs[k + 1].data_ptr(), n, stride, gc,
-                t0, t1, t2, _stream())
-        LAUNCHES['bilateral_color_blur'] += 1
-        _raise_on(rc, 'bilateral_color_blur')
-    return bufs[3]
+                      (_P, _P, _LL) + (_I,) * 10 + (_F, _F, _F, _P))
+    rc = fn(grid.data_ptr(), out.data_ptr(), nodes, gc, c, plan.nc,
+            plan.groups, plan.in_flight, plan.slot, plan.buf_a,
+            plan.smem_bytes,
+            _blocks(nodes * plan.groups, plan.blocks_per_sm, grid.device),
+            plan.threads, t0, t1, t2, _stream())
+    LAUNCHES['bilateral_color_blur'] += 1
+    _raise_on(rc, 'bilateral_color_blur')
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -424,9 +543,8 @@ def bilateral_fold(part: torch.Tensor) -> torch.Tensor:
     return grid
 
 
-# shared memory of one block of the cube-blur kernels: a block may use
-# 227 KB; the budget keeps three blocks on an SM where the cube allows it
-_SMEM_MAX = 227 * 1024
+# shared memory of one block of the cube-blur kernels: the budget keeps
+# three blocks on an SM where the cube allows it
 _SMEM_BUDGET = 74 * 1024
 
 
@@ -441,7 +559,7 @@ def cube_tiling(gc: int, c: int):
     nc = min(c, _SMEM_BUDGET // ((2 * gc + 4) * plane))
     if nc >= 1:
         return nc, gc
-    planes = min(gc, (_SMEM_MAX // plane - 4) // 2)
+    planes = min(gc, (SMEM_BLOCK // plane - 4) // 2)
     if planes < 1:
         raise ValueError(f'colour cube with gc={gc} does not fit a block')
     return 1, planes
@@ -623,31 +741,184 @@ def flat_color_blur_plain(x: torch.Tensor, passes: Sequence[Pass]
     return x
 
 
-def flat_color_blur(x: torch.Tensor, passes: Sequence[Pass]
-                    ) -> torch.Tensor:
-    """x [n_stripes, L] f32 -> the same shape after the passes, one launch
-    per pass between two scratch buffers (bit-equal to the plain
-    version)."""
-    if not _use_kernel(x):
-        return flat_color_blur_plain(x, passes)
-    _check(x, 'x', torch.float32, 2)
+_FLAT_BLUR_MAX_PASSES = 3
+# the most positions a block owns across pass 0's stride, and the fewest
+# windows a launch should have: two for each of an H100's 132 SMs
+_FLAT_BLUR_MAX_WINDOW = 8192
+_FLAT_BLUR_UNITS = 2 * 132
+# pass 0 strides below which a block takes tiles of a stripe
+_FLAT_BLUR_TILE_BELOW = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatBlurPlan:
+    """How ``flat_color_blur`` cuts x [n_stripes, L].
+
+    A block owns `window` positions [a, a + lc) of a stripe inside `walk`
+    (`windows` of them, the last ragged; ``cut()``) and walks `steps`
+    steps along it: step k covers k * walk + [a, a + lc).  On the walk
+    (`walk` = pass 0's stride) pass 0's taps are the windows of steps
+    k - r0 .. k + r0; a tile (`walk` = L, one step) carries pass 0's
+    reach r0 * stride in its own window instead (`reach`), for strides
+    too short to walk along.  Pass p's window reaches halos[p] beyond the
+    block's positions on each side (the last pass's 0).  The ring holds
+    `ring` input windows of `slot` floats; pass 0 writes its window over
+    the oldest of them on the walk, from float `buf_y0` on for a tile;
+    pass 1's starts at float `buf0`."""
+    length: int
+    stride: int
+    walk: int
+    reach: int
+    halos: Tuple[int, ...]
+    taps0: int
+    window: int
+    windows: int
+    steps: int
+    in_flight: int
+    slot: int
+    buf_y0: int
+    buf0: int
+    smem_bytes: int
+    threads: int
+    blocks_per_sm: int
+
+    @property
+    def tile(self) -> bool:
+        return self.walk != self.stride
+
+    @property
+    def ring(self) -> int:
+        return (1 if self.tile else self.taps0) + self.in_flight
+
+    def cut(self) -> List[Tuple[int, int]]:
+        """(a, lc): the positions [a, a + lc) of each window of a walk."""
+        return [(a, min(self.window, self.walk - a))
+                for a in range(0, self.walk, self.window)]
+
+
+def _check_passes(passes: Sequence[Pass]) -> None:
     for taps, stride in passes:
         if not 1 <= len(taps) <= _FLAT_BLUR_MAX_TAPS or len(taps) % 2 == 0:
             raise ValueError(f'flat_color_blur takes an odd number of taps '
                              f'up to {_FLAT_BLUR_MAX_TAPS}, got {len(taps)}')
         if stride < 1:
             raise ValueError(f'stride {stride} < 1')
-    fn = _build.entry('flat_color_blur',
-                      (_P, _P, _LL, _LL, _LL, ctypes.POINTER(_F), _I, _P))
+
+
+def flat_blur_plan(n_stripes: int, length: int, passes: Sequence[Pass]
+                   ) -> FlatBlurPlan:
+    """The geometry of ``flat_color_blur`` for `n_stripes` stripes of
+    `length` and a chain of 1-3 passes.  A block walks along pass 0's
+    stride, or takes tiles of a stripe where that stride is under 2048.
+    Its window is the widest (up to 8192 positions, and narrow enough for
+    264 windows in all where the walk and the halos allow; the windows of
+    a walk as even as they come) whose ring, with 2 windows in flight,
+    fits a block; else with 1 in flight.  ValueError when not even a
+    one-position window fits (a halo too wide for a block)."""
+    _check_passes(passes)
+    if not 1 <= len(passes) <= _FLAT_BLUR_MAX_PASSES:
+        raise ValueError(f'flat_color_blur takes 1-{_FLAT_BLUR_MAX_PASSES} '
+                         f'passes in one launch, got {len(passes)}')
+    return _flat_blur_plan(n_stripes, length,
+                           tuple((len(t), int(st)) for t, st in passes))
+
+
+@functools.lru_cache(maxsize=None)
+def _flat_blur_plan(n_stripes: int, length: int,
+                    chain: Tuple[Tuple[int, int], ...]) -> FlatBlurPlan:
+    """flat_blur_plan for passes of (taps, stride) counts `chain`."""
+    n = len(chain)
+    strides = [st for _, st in chain]
+    halos = [0] * n
+    for p in range(n - 2, -1, -1):
+        halos[p] = halos[p + 1] + (chain[p + 1][0] - 1) // 2 * strides[p + 1]
+    s0, n0 = strides[0], chain[0][0]
+    avail = SMEM_BLOCK - 4 * _FLAT_BLUR_MAX_TAPS      # static: tap offsets
+
+    def plan(tile):
+        walk = length if tile else s0
+        reach = (n0 - 1) // 2 * s0 if tile else 0
+        ring = 1 if tile else n0
+
+        def layout(lc, f):
+            # on the walk pass 0's window overwrites a ring slot; pass 1's
+            # has its own; float4 reads of pass 1 run up to 3 floats past
+            # a buffer's end
+            slot = _round4(lc + 2 * (halos[0] + reach) + 3)
+            buf_y0 = (ring + f) * slot
+            y0 = _round4(lc + 2 * halos[0] + 3) + 4 if tile and n >= 2 else 0
+            y1 = _round4(lc + 2 * halos[1] + 3) if n == 3 else 0
+            return slot, buf_y0, buf_y0 + y0, 4 * (buf_y0 + y0 + y1 + 4)
+
+        # windows a walk for 264 in all, but none narrower than its halos
+        rows = -(-_FLAT_BLUR_UNITS // max(1, n_stripes))
+        want = min(walk, _FLAT_BLUR_MAX_WINDOW,
+                   max(_round4(-(-walk // rows)),
+                       _round4(2 * (halos[0] + reach))))
+        for f in (2, 1):
+            lc = want
+            while lc >= 1 and layout(lc, f)[3] > avail:
+                lc = min(lc - 1, lc * avail // layout(lc, f)[3])
+            if lc < 1 or (f == 2 and lc < want):
+                continue
+            nwin = -(-walk // lc)
+            even = -(-walk // nwin)
+            if _round4(even) <= lc:
+                even = _round4(even)
+            window = min(even, walk)
+            slot, buf_y0, buf0, smem = layout(window, f)
+            threads = min(512, max(128, _pow2((window + 2 * halos[0]) // 4)))
+            return FlatBlurPlan(
+                length, s0, walk, reach, tuple(halos), n0, window,
+                -(-walk // window), -(-length // walk), f, slot, buf_y0,
+                buf0, smem, threads,
+                _blocks_per_sm(smem + 4 * _FLAT_BLUR_MAX_TAPS, threads))
+        return None
+
+    # a stride too short to walk along gives steps of a few hundred
+    # positions, each with its syncs: take tiles instead
+    tile = s0 < _FLAT_BLUR_TILE_BELOW and s0 < length
+    found = plan(tile) or (plan(False) if tile else None)
+    if found is None:
+        raise ValueError(f'flat_color_blur: no plan fits a block of '
+                         f'{SMEM_BLOCK} bytes for L={length}, strides '
+                         f'{strides}, taps {[t for t, _ in chain]}: pass '
+                         f'0\'s halo of {halos[0]} positions is too wide')
+    return found
+
+
+def flat_color_blur(x: torch.Tensor, passes: Sequence[Pass]
+                    ) -> torch.Tensor:
+    """x [n_stripes, L] f32 -> the same shape after a chain of 1-3
+    passes, in one launch that reads x once and writes the result once
+    (bit-equal to the plain version).  No passes: x itself."""
+    if not _use_kernel(x):
+        return flat_color_blur_plain(x, passes)
+    _check(x, 'x', torch.float32, 2)
+    _check_passes(passes)
+    if not passes:
+        return x
     n_stripes, length = x.shape
-    bufs = [torch.empty_like(x) for _ in range(min(2, len(passes)))]
-    src = x
-    for k, (taps, stride) in enumerate(passes):
-        dst = bufs[k % 2]
-        ctaps = (_F * len(taps))(*(float(v) for v in taps))
-        rc = fn(src.data_ptr(), dst.data_ptr(), n_stripes, length,
-                int(stride), ctaps, len(taps), _stream())
-        LAUNCHES['flat_color_blur'] += 1
-        _raise_on(rc, 'flat_color_blur')
-        src = dst
-    return src
+    plan = flat_blur_plan(n_stripes, length, passes)
+    n = len(passes)
+    taps = (_F * (_FLAT_BLUR_MAX_PASSES * _FLAT_BLUR_MAX_TAPS))()
+    for p, (k, _) in enumerate(passes):
+        for j, v in enumerate(k):
+            taps[p * _FLAT_BLUR_MAX_TAPS + j] = float(v)
+    n_taps = (_I * n)(*(len(k) for k, _ in passes))
+    strides = (_LL * n)(*(int(st) for _, st in passes))
+    halos = (_I * n)(*plan.halos)
+    out = torch.empty_like(x)
+    fn = _build.entry('flat_color_blur',
+                      (_P, _P, _LL, _LL, _I, ctypes.POINTER(_F),
+                       ctypes.POINTER(_I), ctypes.POINTER(_LL),
+                       ctypes.POINTER(_I), _I, _I, _LL) + (_I,) * 8 + (_P,))
+    rc = fn(x.data_ptr(), out.data_ptr(), n_stripes, length, n, taps, n_taps,
+            strides, halos, plan.window, plan.windows, plan.steps,
+            plan.in_flight, plan.slot, plan.buf0, int(plan.tile),
+            plan.buf_y0, plan.smem_bytes,
+            _blocks(n_stripes * plan.windows, plan.blocks_per_sm, x.device),
+            plan.threads, _stream())
+    LAUNCHES['flat_color_blur'] += 1
+    _raise_on(rc, 'flat_color_blur')
+    return out
