@@ -11,23 +11,26 @@ Phases, in order; any failure exits non-zero and prints no result:
                main path's (batch 8, 64x64 guide, C 21 and C 1) and at SEC
                prediction's (one 375x500 image, 38x50 guide), the colour
                blur also at the v2 route's largest cube (gc 24, C 32: a
-               plan of channel groups); the v1
-               route's four and the slice at SEC prediction's (5x7 ragged
-               tiles, C 21 and C 1), at the wide path's (batch 2, 32x32
-               guide, C 40 and C 1) and, as an extra, at batch 8 (C 21 and
-               C 40); the cube blur on a cube too large for one block
-               (gc 52).  Error against the stated tolerance (the v1
-               kernels and both colour blurs: bit-equal, and the tile
-               splat the same bits on two runs), and
-               times from CUDA events (median) beside the bound and a
-               library call; the one-launch colour blur against the
-               one-pass cube blur on the v1 shapes (B 8 223 MB, wide
-               33 MB, SEC 4 MB); the scatter grid's flat colour blur in
-               its fused and split forms on the IRNet label CRF's grid
-               (9 x 9 x 56^3 cells, C 21 and C 1) and on the VOC
-               HistoSegNet config's scatter grid (C 21, C 1); the aligned
-               grid's splat and slice at batch 8, 321^2, t 20, gc 16 and
-               gc 21, and on a ragged 13x17 image;
+               plan of channel groups); the v1 route's four and the
+               slice at SEC prediction's (5x7 ragged tiles, C 21 and
+               C 1), at the wide path's (batch 2, 32x32 guide, C 40 and
+               C 1) and, as an extra, at batch 8 (C 21 and C 40); the
+               cube blur on a cube too large for one block (gc 52, where
+               the tile splat is held too).  Error against the stated
+               tolerance (the v1 kernels, both colour blurs and the
+               aligned slice: bit-equal, and the tile splat the same bits
+               on two runs), and times from CUDA events (the median of
+               one call, and a call's share of a CUDA graph of 10 calls
+               back to back: the device's time) beside the bound and a
+               library call (the tile splat's and the aligned slice's
+               library calls in a graph too); the one-launch colour blur
+               against the one-pass cube blur on the v1 shapes (B 8
+               223 MB, wide 33 MB, SEC 4 MB); the scatter grid's flat
+               colour blur in its fused and split forms on the IRNet
+               label CRF's grid (9 x 9 x 56^3 cells, C 21 and C 1) and
+               on the VOC HistoSegNet config's scatter grid (C 21, C 1);
+               the aligned grid's splat and slice at batch 8, 321^2,
+               t 20, gc 16 and gc 21, and on a ragged 13x17 image;
   4. main    — HSNSegmenter.segment_batch for VOC2012 with random-init
                full-width VGG16 fg and bg classifiers at 321^2, batch 8,
                the production CRF config: img/s, CAM- and CRF-stage ms,
@@ -101,22 +104,39 @@ def cuda_ms(torch, fn, reps=30, warmup=3):
 
 
 def burst_ms(torch, fn, burst=10, reps=5):
-    """Median ms a call over reps bursts of `burst` calls back to back,
-    each burst timed by CUDA events: the device's time, without the
-    host's work a call (~0.05 ms) that cuda_ms also counts."""
+    """Median ms a call over reps replays of one CUDA graph of `burst`
+    calls back to back, each replay timed by CUDA events: the device's
+    time.  The graph leaves out the host's work a call (Python, ctypes,
+    the launch: ~0.03-0.05 ms) that cuda_ms counts and that a burst of
+    eager calls still waits on wherever a call's device time is shorter."""
     fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode='relaxed'):
+        for _ in range(burst):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(burst):
-            fn()
+        graph.replay()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / burst)
+    del graph
     return float(np.median(times))
+
+
+def bursts(r):
+    """The device times of a result, where it has them, for a log line."""
+    if 'device_ms' not in r:
+        return ''
+    lib = (f', library {r["library_device_ms"]:.4f} ms'
+           if 'library_device_ms' in r else '')
+    return f' (on the device, a graph of 10: {r["device_ms"]:.4f} ms{lib})'
 
 
 def bound_ms(n_bytes, n_flops):
@@ -267,7 +287,8 @@ def phase_kernels(torch):
         bb, bf = bound_ms(x.numel() * 4 + cell.numel() * 4 + gbytes,
                           4 * 3 * x.numel())
         results['bilateral_splat'].update(
-            ms=cuda_ms(torch, splat), plain_ms=cuda_ms(torch, splat_plain),
+            ms=cuda_ms(torch, splat), device_ms=burst_ms(torch, splat),
+            plain_ms=cuda_ms(torch, splat_plain),
             library_ms=cuda_ms(torch, splat_lib), bound_ms=bb, bound_by=bf)
 
         w3 = torch.tensor(geo.taps[::-1] + geo.taps[1:], device=dev)
@@ -314,13 +335,13 @@ def phase_kernels(torch):
                           + ref_l.numel() * 4, 7 * ref_l.numel())
         results['bilateral_slice'].update(
             ms=cuda_ms(torch, lambda: K.bilateral_slice(g_sp, cell, t)),
+            device_ms=burst_ms(torch, lambda: K.bilateral_slice(g_sp, cell,
+                                                                t)),
             plain_ms=cuda_ms(torch, lambda: K.bilateral_slice_plain(
                 g_sp, cell, t)),
             library_ms=cuda_ms(torch, slice_lib), bound_ms=bb, bound_by=bf)
     for name, r in results.items():
-        burst = (f' ({r["device_ms"]:.4f} ms a call in bursts of 10)'
-                 if 'device_ms' in r else '')
-        print(f'[kernels] {name} C=21: {r["ms"]:.4f} ms{burst}, plain '
+        print(f'[kernels] {name} C=21: {r["ms"]:.4f} ms{bursts(r)}, plain '
               f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} ms, '
               f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]})')
 
@@ -354,11 +375,11 @@ def phase_kernels(torch):
                 bound_ms(touched * c * 4 + cell.numel() * 4
                          + ref_l.numel() * 4, 7 * ref_l.numel()))}
         for name, (fn, (bb, bf)) in case.items():
-            ms = cuda_ms(torch, fn)
-            results[name]['cases'][f'sec_v2_c{c}'] = dict(
-                max_abs_err=errs[name], ms=ms, bound_ms=bb, bound_by=bf)
-            print(f'[kernels] {name} {label}: {ms:.4f} ms, bound '
-                  f'{bb:.4f} ms ({bf})')
+            r = results[name]['cases'][f'sec_v2_c{c}'] = dict(
+                max_abs_err=errs[name], ms=cuda_ms(torch, fn),
+                device_ms=burst_ms(torch, fn), bound_ms=bb, bound_by=bf)
+            print(f'[kernels] {name} {label}: {r["ms"]:.4f} ms{bursts(r)}, '
+                  f'bound {bb:.4f} ms ({bf})')
 
     # the v2 route's largest cube: gc 24 (srgb 255/23), C 32; its planes
     # (74 KB) take a plan of channel groups
@@ -446,9 +467,13 @@ def hold_v1_kernels(torch, K, geo, x, label):
                       4 * 3 * x.numel())
     res['bilateral_splat_tiles'].update(
         ms=cuda_ms(torch, lambda: K.bilateral_splat_tiles(x, cell, t, gc)),
+        device_ms=burst_ms(torch, lambda: K.bilateral_splat_tiles(
+            x, cell, t, gc)),
         plain_ms=cuda_ms(torch, lambda: K.bilateral_splat_tiles_plain(
             x, cell, t, gc), reps=5, warmup=1),
-        library_ms=cuda_ms(torch, tiles_lib), bound_ms=bb, bound_by=bf)
+        library_ms=cuda_ms(torch, tiles_lib),
+        library_device_ms=burst_ms(torch, tiles_lib), bound_ms=bb,
+        bound_by=bf)
     del rows4, vals4, corner
 
     # yardstick of the fold: F.fold (col2im, 2x2 blocks at stride 1) adds
@@ -468,6 +493,7 @@ def hold_v1_kernels(torch, K, geo, x, label):
     bb, bf = bound_ms(pbytes + gbytes, 3 * fold.numel())
     res['bilateral_fold'].update(
         ms=cuda_ms(torch, lambda: K.bilateral_fold(part)),
+        device_ms=burst_ms(torch, lambda: K.bilateral_fold(part)),
         plain_ms=cuda_ms(torch, lambda: K.bilateral_fold_plain(part),
                          reps=10),
         library_ms=cuda_ms(torch, fold_lib, reps=10), bound_ms=bb,
@@ -477,6 +503,7 @@ def hold_v1_kernels(torch, K, geo, x, label):
     bb, bf = bound_ms(pbytes + gbytes, (3 + 27) * fold.numel())
     res['bilateral_fold_blur'].update(
         ms=cuda_ms(torch, lambda: K.bilateral_fold_blur(part, taps)),
+        device_ms=burst_ms(torch, lambda: K.bilateral_fold_blur(part, taps)),
         plain_ms=cuda_ms(torch, lambda: K.bilateral_fold_blur_plain(
             part, taps), reps=10),
         library_ms=None, bound_ms=bb, bound_by=bf)
@@ -495,6 +522,7 @@ def hold_v1_kernels(torch, K, geo, x, label):
     bb, bf = bound_ms(2 * gbytes, 27 * fold.numel())
     res['bilateral_cube_blur'].update(
         ms=cuda_ms(torch, lambda: K.bilateral_cube_blur(fold, taps)),
+        device_ms=burst_ms(torch, lambda: K.bilateral_cube_blur(fold, taps)),
         plain_ms=cuda_ms(torch, lambda: K.bilateral_cube_blur_plain(
             fold, taps), reps=10),
         library_ms=cuda_ms(torch, blur_lib, reps=5, warmup=1),
@@ -508,6 +536,7 @@ def hold_v1_kernels(torch, K, geo, x, label):
                       7 * sliced.numel())
     res['bilateral_slice'].update(
         ms=cuda_ms(torch, lambda: K.bilateral_slice(g_sp, cell, t)),
+        device_ms=burst_ms(torch, lambda: K.bilateral_slice(g_sp, cell, t)),
         bound_ms=bb, bound_by=bf)
     for name, r in res.items():
         lib = ('not timed' if 'library_ms' not in r
@@ -515,8 +544,8 @@ def hold_v1_kernels(torch, K, geo, x, label):
                else f'{r["library_ms"]:.4f} ms')
         plain = (f'{r["plain_ms"]:.4f} ms' if 'plain_ms' in r
                  else 'not timed')
-        print(f'[kernels] {name} {label}: {r["ms"]:.4f} ms, plain {plain}, '
-              f'library {lib}, bound {r["bound_ms"]:.4f} ms '
+        print(f'[kernels] {name} {label}: {r["ms"]:.4f} ms{bursts(r)}, '
+              f'plain {plain}, library {lib}, bound {r["bound_ms"]:.4f} ms '
               f'({r["bound_by"]})')
     print(f'[kernels] colour blur {label} ({gbytes / 1e6:.0f} MB): '
           f'bilateral_color_blur '
@@ -585,16 +614,22 @@ def phase_kernels_v1(torch, results):
     nc, planes = K.cube_tiling(big.gc, 1)
     check(big.gc == 52 and not big.v2 and not big.fuse_combine_blur
           and planes < big.gc, f'large-cube case changed: gc {big.gc}')
-    grid = K.bilateral_fold(K.bilateral_splat_tiles(
-        torch.ones((1, GUIDE, GUIDE, 1), device=dev), big.cell, big.t,
-        big.gc))
+    ones = torch.ones((1, GUIDE, GUIDE, 1), device=dev)
+    part = K.bilateral_splat_tiles(ones, big.cell, big.t, big.gc)
+    check(torch.equal(part, K.bilateral_splat_tiles_plain(
+        ones, big.cell, big.t, big.gc)),
+        'bilateral_splat_tiles gc=52 C=1 is not bit-equal to its plain '
+        'version')
+    grid = K.bilateral_fold(part)
+    del part
     got = K.bilateral_cube_blur(grid, big.taps)
     check(torch.equal(got, K.bilateral_cube_blur_plain(grid, big.taps)),
           'bilateral_cube_blur gc=52 is not bit-equal to its plain version')
     ms = cuda_ms(torch, lambda: K.bilateral_cube_blur(grid, big.taps))
     bb, _ = bound_ms(2 * grid.numel() * 4, 27 * grid.numel())
-    print(f'[kernels] bilateral_cube_blur gc=52 C=1 B=1 ({planes} of 52 '
-          f'cr-planes a block): bit-equal, {ms:.4f} ms, bound {bb:.4f} ms')
+    print(f'[kernels] bilateral_splat_tiles and bilateral_cube_blur gc=52 '
+          f'C=1 B=1 ({planes} of 52 cr-planes a block): bit-equal; cube '
+          f'blur {ms:.4f} ms, bound {bb:.4f} ms')
     results['bilateral_cube_blur']['gc52_ms'] = ms
 
 
@@ -910,7 +945,7 @@ def hold_flat_blur(torch, bg, x, label, want_form, timed):
     for name, r in res.items():
         extra = (f', plain {r["plain_ms"]:.4f} ms, library (conv3d) '
                  f'{r["library_ms"]:.4f} ms' if timed else '')
-        burst = (f' ({r["device_ms"]:.4f} ms a call in bursts of 5)'
+        burst = (f' ({r["device_ms"]:.4f} ms on the device, a graph of 5)'
                  if 'device_ms' in r else '')
         print(f'[kernels] {name} {label}: {r["ms"]:.4f} ms{burst}{extra}, '
               f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]})')
@@ -1028,6 +1063,8 @@ def phase_kernels_aligned(torch, results):
             res['bilateral_splat_aligned'].update(
                 ms=cuda_ms(torch, lambda: K.bilateral_splat_aligned(
                     x, cell, t, gc)),
+                device_ms=burst_ms(torch, lambda: K.bilateral_splat_aligned(
+                    x, cell, t, gc)),
                 plain_ms=cuda_ms(torch, lambda:
                                  K.bilateral_splat_aligned_plain(
                                      x, cell, t, gc), reps=10),
@@ -1039,14 +1076,17 @@ def phase_kernels_aligned(torch, results):
             res['bilateral_slice_aligned'].update(
                 ms=cuda_ms(torch, lambda: K.bilateral_slice_aligned(
                     g_bl, cell, t)),
+                device_ms=burst_ms(torch, lambda: K.bilateral_slice_aligned(
+                    g_bl, cell, t)),
                 plain_ms=cuda_ms(torch, lambda:
                                  K.bilateral_slice_aligned_plain(
                                      g_bl, cell, t), reps=10),
                 library_ms=cuda_ms(torch, lambda: g_flat[rows], reps=10),
+                library_device_ms=burst_ms(torch, lambda: g_flat[rows]),
                 bound_ms=bb, bound_by=bf)
             for name, r in res.items():
-                print(f'[kernels] {name} {label}: {r["ms"]:.4f} ms, plain '
-                      f'{r["plain_ms"]:.4f} ms, library '
+                print(f'[kernels] {name} {label}: {r["ms"]:.4f} ms'
+                      f'{bursts(r)}, plain {r["plain_ms"]:.4f} ms, library '
                       f'{r["library_ms"]:.4f} ms, bound '
                       f'{r["bound_ms"]:.4f} ms ({r["bound_by"]})')
         for name, r in res.items():
@@ -1346,7 +1386,8 @@ def main():
                 'runs the split form'}
                if name == 'flat_color_blur_split' else {}),
             **{k: r[k] for k in ('shape', 'cases', 'device_ms',
-                                 'color_blur_ms', 'gc52_ms') if k in r}))
+                                 'library_device_ms', 'color_blur_ms',
+                                 'gc52_ms') if k in r}))
     print('kernels launched on the paths: '
           + ', '.join(k['name'] for k in kernels))
     print(f'[result] card: {smi}')

@@ -1,0 +1,167 @@
+#!/usr/bin/env python3
+"""Device time of the v1 route's tile splat and of the aligned slice of
+one tree of wsss_tpu_torch, on one CUDA card, beside their yardsticks.
+
+    python3 scripts/time_tile_kernels.py [--tree DIR]
+
+Imports wsss_tpu_torch from DIR (default: this repository; another
+checkout, such as a `git archive` of an earlier commit, compares two
+versions of the kernels on one card), builds its kernels, and times at
+the shapes chip_smoke.py gives them:
+  * bilateral_splat_tiles (K4) on SEC prediction's v1 guide (B 1, 38x50,
+    5x7 ragged tiles; C 21, C 1), the wide path's (B 2, 32x32; C 40,
+    C 1) and the batch-8 guide (64x64; C 21, C 40), against one
+    ``zeros().index_add_`` into the partial layout, and a plain
+    ``fill_`` of the partials' bytes (how fast the card writes them);
+  * bilateral_slice_aligned (K10) at batch 8, 321^2, t 20, gc 16 and
+    gc 21, C 21, against one advanced-index gather with the rows
+    precomputed.
+Each time is chip_smoke.py's: `ms` one call between CUDA events (host
+work included), `device_ms` a call's share of a CUDA graph of 10 calls
+back to back (the device's time).
+The bound counts each byte the function must move once at 3.35 TB/s.
+Prints the card's name and power limit, then one JSON line.  Needs a
+card; imports nothing of JAX.
+"""
+import argparse
+import importlib.util
+import json
+import pathlib
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def load_helpers():
+    """chip_smoke.py of this repository (timing helpers, the paths'
+    guides), loaded by its path so that another tree's copy is not."""
+    spec = importlib.util.spec_from_file_location('chip_smoke_helpers',
+                                                  ROOT / 'chip_smoke.py')
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def time_splat_tiles(torch, cs, K, mxu_grid, cell_mult):
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    out = {}
+    flag = mxu_grid._V2_DISABLED
+    for path, c in (('sec', 21), ('sec', 1), ('wide', 40), ('wide', 1),
+                    ('hsn', 21), ('hsn', 40)):
+        guide = cs.path_guide(torch, path, gen)
+        mxu_grid._V2_DISABLED = True
+        try:
+            geo = mxu_grid.MXUBilateralGrid(guide, 8.0, 13.0, c,
+                                            cell_mult=cell_mult)
+        finally:
+            mxu_grid._V2_DISABLED = flag
+        t, gc, cell = geo.t, geo.gc, geo.cell
+        x = torch.rand(tuple(guide.shape[:3]) + (c,), generator=gen,
+                       device='cuda')
+        part = K.bilateral_splat_tiles(x, cell, t, gc)
+        cs.check(torch.equal(part, K.bilateral_splat_tiles_plain(
+            x, cell, t, gc)), f'bilateral_splat_tiles {path} C={c} is not '
+            'bit-equal to its plain version')
+        gc3 = gc ** 3
+        gy, gx = geo.gy, geo.gx
+        corner = K.corner_rows(cell, t, gy - 1, gx - 1, gc3, own_tile=True)
+        rows4 = torch.cat([((r - cell) * 4 + q * gc3 + cell).reshape(-1)
+                           for q, (r, _) in enumerate(corner)])
+        vals4 = torch.cat([(w[..., None] * x).reshape(-1, c)
+                           for _, w in corner])
+        n_rows = part.numel() // c
+
+        def lib():
+            return torch.zeros((n_rows, c), device='cuda'
+                               ).index_add_(0, rows4, vals4)
+
+        def kernel():
+            return K.bilateral_splat_tiles(x, cell, t, gc)
+        bb, _ = cs.bound_ms(part.numel() * 4 + x.numel() * 4
+                            + cell.numel() * 4, 4 * 3 * x.numel())
+        key = {'hsn': 'b8'}.get(path, path) + f'_c{c}'
+        out[key] = dict(ms=cs.cuda_ms(torch, kernel),
+                        device_ms=cs.burst_ms(torch, kernel),
+                        library_ms=cs.cuda_ms(torch, lib),
+                        library_device_ms=cs.burst_ms(torch, lib),
+                        fill_device_ms=cs.burst_ms(
+                            torch, lambda: part.fill_(1.0)),
+                        bound_ms=bb)
+        del part
+        del rows4, vals4, corner
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_slice_aligned(torch, cs, K, mxu_grid, cell_mult):
+    gen = torch.Generator(device='cuda').manual_seed(6)
+    out = {}
+    for key, mult in (('b8_gc16', cell_mult), ('b8_gc21', 1.0)):
+        imgs = torch.rand((cs.BATCH, cs.SIZE, cs.SIZE, 3), generator=gen,
+                          device='cuda') * 255
+        geo = mxu_grid.AlignedBilateralGrid(imgs, 40.0, 13.0, 21,
+                                            cell_mult=mult)
+        t, gc, cell = geo.t, geo.gc, geo.cell
+        grid = torch.rand((cs.BATCH, geo.nty, geo.ntx, gc, gc, gc, 21),
+                          generator=gen, device='cuda')
+        rows = K._tile_rows(cell, t, gc ** 3)
+        g_flat = grid.reshape(-1, 21)
+        got = K.bilateral_slice_aligned(grid, cell, t)
+        cs.check(torch.equal(got, g_flat[rows]),
+                 f'bilateral_slice_aligned {key} is not bit-equal to the '
+                 'gather')
+        touched = int(torch.unique(rows).numel())
+        bb, _ = cs.bound_ms(touched * 21 * 4 + cell.numel() * 4
+                            + got.numel() * 4, 0)
+        del got
+
+        def kernel():
+            return K.bilateral_slice_aligned(grid, cell, t)
+
+        def lib():
+            return g_flat[rows]
+        out[key] = dict(ms=cs.cuda_ms(torch, kernel),
+                        device_ms=cs.burst_ms(torch, kernel),
+                        library_ms=cs.cuda_ms(torch, lib),
+                        library_device_ms=cs.burst_ms(torch, lib),
+                        bound_ms=bb)
+        del grid, g_flat, rows
+        torch.cuda.empty_cache()
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--tree', default=str(ROOT),
+                    help='checkout whose wsss_tpu_torch is timed')
+    args = ap.parse_args()
+    tree = pathlib.Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    import torch
+    cs = load_helpers()
+    smi = cs.phase_device(torch)
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.kernels import build
+    from wsss_tpu_torch.ops.crf import mxu_grid
+    from wsss_tpu_torch.ops.crf.meanfield import MXU_CELL_MULT
+    cs.check(pathlib.Path(K.__file__).resolve().is_relative_to(tree),
+             f'wsss_tpu_torch came from {K.__file__}, not {tree}')
+    build.build()
+    res = {'tree': str(tree), 'card': smi,
+           'bilateral_splat_tiles': time_splat_tiles(
+               torch, cs, K, mxu_grid, MXU_CELL_MULT),
+           'bilateral_slice_aligned': time_slice_aligned(
+               torch, cs, K, mxu_grid, MXU_CELL_MULT)}
+    for name in ('bilateral_splat_tiles', 'bilateral_slice_aligned'):
+        for key, r in res[name].items():
+            fill = (f'; fill_ {r["fill_device_ms"]:.4f}'
+                    if 'fill_device_ms' in r else '')
+            print(f'[time] {name} {key}: {r["ms"]:.4f} ms a call, '
+                  f'{r["device_ms"]:.4f} on the device; library '
+                  f'{r["library_ms"]:.4f} / {r["library_device_ms"]:.4f}'
+                  f'{fill}; bound {r["bound_ms"]:.4f} ms')
+    print(json.dumps(res))
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -153,17 +153,26 @@ def test_kernels_match_plain_on_card(cuda_device, c):
     torch.testing.assert_close(g.filter(x), plain, rtol=1e-5, atol=1e-5)
 
 
+# (C, sxy -> t, srgb, cell_mult): the production colour geometry (gc 16)
+# at t 8, 16 and 48 and at C 1 to 64, and the finest cube (gc 64)
+V1_CARD_CASES = [(21, 8.0, 13.0, 1.35), (40, 8.0, 13.0, 1.35),
+                 (1, 8.0, 13.0, 1.35), (21, 16.0, 13.0, 1.35),
+                 (21, 48.0, 13.0, 1.35), (64, 8.0, 13.0, 1.35),
+                 (1, 8.0, 255.0 / 63, 1.0)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('c', [21, 40, 1])
-def test_v1_kernels_match_plain_on_card(cuda_device, c):
-    """Production colour geometry (gc 16, t 8) on a ragged 60x52 guide,
-    batch 2: the tile splat, fold, fused fold+blur and cube blur sum in
-    a fixed order and equal their plain versions bit for bit; so does a
-    whole filter on either v1 route."""
+@pytest.mark.parametrize('c,sxy,srgb,mult', V1_CARD_CASES)
+def test_v1_kernels_match_plain_on_card(cuda_device, c, sxy, srgb, mult):
+    """A ragged 60x52 guide, batch 2: the tile splat, fold, fused
+    fold+blur and cube blur sum in a fixed order and equal their plain
+    versions bit for bit, the tile splat the same bits on two runs; so
+    does a whole filter on either v1 route."""
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     imgs = torch.rand((2, 60, 52, 3), generator=gen,
                       device=cuda_device) * 255
-    g = mxu_grid.MXUBilateralGrid(imgs, 8.0, 13.0, c, cell_mult=1.35)
+    g = mxu_grid.MXUBilateralGrid(imgs, sxy, srgb, c, cell_mult=mult)
+    assert g.t == int(sxy) and g.gc == (64 if mult == 1.0 else 16)
     x = torch.rand((2, 60, 52, c), generator=gen, device=cuda_device)
     before = dict(K.LAUNCHES)
     part = K.bilateral_splat_tiles(x, g.cell, g.t, g.gc)
@@ -185,6 +194,28 @@ def test_v1_kernels_match_plain_on_card(cuda_device, c):
         with K.plain_versions():
             plain = g.filter(x)
         assert torch.equal(g.filter(x), plain), fused
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('c', [21, 1])
+def test_splat_tiles_writes_every_element_on_card(cuda_device, c):
+    """No memset: a block of NaNs of the partials' size, freed, comes back
+    from the caching allocator as the partials, and the kernel leaves no
+    NaN in it (SEC prediction's 38x50 guide, 5x7 ragged tiles)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    imgs = torch.rand((1, 38, 50, 3), generator=gen,
+                      device=cuda_device) * 255
+    g = mxu_grid.MXUBilateralGrid(imgs, 8.0, 13.0, c, cell_mult=1.35)
+    x = torch.rand((1, 38, 50, c), generator=gen, device=cuda_device)
+    shape = (1, 5, 7, 4, g.gc, g.gc, g.gc, c)
+    poison = torch.full(shape, float('nan'), device=cuda_device)
+    ptr = poison.data_ptr()
+    del poison
+    part = K.bilateral_splat_tiles(x, g.cell, g.t, g.gc)
+    assert part.data_ptr() == ptr and part.shape == shape
+    assert not torch.isnan(part).any()
+    assert torch.equal(part, K.bilateral_splat_tiles_plain(x, g.cell, g.t,
+                                                           g.gc))
 
 
 @pytest.mark.cuda
@@ -248,22 +279,23 @@ def test_kernel_wrappers_check_their_inputs(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('c', [21, 1])
-def test_aligned_kernels_match_plain_on_card(cuda_device, c):
+@pytest.mark.parametrize('c,w', [(21, 52), (1, 52), (64, 52), (21, 33)])
+def test_aligned_kernels_match_plain_on_card(cuda_device, c, w):
     """Production colour geometry (sxy 40 -> t 20, gc 16) on a ragged
-    70x52 guide, batch 2: the aligned splat within 1e-5 of its max
-    (atomics), the aligned slice bit-equal (a gather), the whole filter
-    within 1e-5."""
+    70 x w guide (w no multiple of 32), batch 2: the aligned splat within
+    1e-5 of its max (atomics), the aligned slice bit-equal (a gather),
+    the whole filter within 1e-5."""
     gen = torch.Generator(device=cuda_device).manual_seed(3)
-    imgs = torch.rand((2, 70, 52, 3), generator=gen,
+    imgs = torch.rand((2, 70, w, 3), generator=gen,
                       device=cuda_device) * 255
     g = mxu_grid.AlignedBilateralGrid(imgs, 40.0, 13.0, c, cell_mult=1.35)
-    assert (g.t, g.nty, g.ntx, g.gc) == (20, 4, 3, 16)
-    x = torch.rand((2, 70, 52, c), generator=gen, device=cuda_device)
+    ntx = -(-w // 20)
+    assert (g.t, g.nty, g.ntx, g.gc) == (20, 4, ntx, 16)
+    x = torch.rand((2, 70, w, c), generator=gen, device=cuda_device)
     before = dict(K.LAUNCHES)
     ref = K.bilateral_splat_aligned_plain(x, g.cell, g.t, g.gc)
     got = K.bilateral_splat_aligned(x, g.cell, g.t, g.gc)
-    assert got.shape == ref.shape == (2, 4, 3, 16, 16, 16, c)
+    assert got.shape == ref.shape == (2, 4, ntx, 16, 16, 16, c)
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
     assert torch.equal(K.bilateral_slice_aligned(ref, g.cell, g.t),
                        K.bilateral_slice_aligned_plain(ref, g.cell, g.t))
@@ -274,6 +306,28 @@ def test_aligned_kernels_match_plain_on_card(cuda_device, c):
     torch.testing.assert_close(g.filter(x), plain, rtol=1e-5, atol=1e-5)
     assert (K.LAUNCHES['bilateral_cube_blur']
             == before['bilateral_cube_blur'] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,h,w,t,gc,c', [
+    (1, 7, 33, 4, 2, 512),      # the widest C the aligned grid admits
+    (3, 5, 9, 5, 4, 1),         # 135 pixels: a last run of 7
+    (2, 13, 17, 3, 3, 3),       # runs across rows and images
+    (1, 41, 97, 7, 5, 21)])
+def test_slice_aligned_edge_shapes_on_card(cuda_device, b, h, w, t, gc, c):
+    """The aligned slice's warps copy runs of 32 flat pixels: bit-equal to
+    the plain gather at odd t, ragged tiles and runs, C 1 to 512; one
+    launch a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(c)
+    nty, ntx = -(-h // t), -(-w // t)
+    grid = torch.rand((b, nty, ntx, gc, gc, gc, c), generator=gen,
+                      device=cuda_device)
+    cell = torch.randint(0, gc ** 3, (b, h, w), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    before = K.LAUNCHES['bilateral_slice_aligned']
+    got = K.bilateral_slice_aligned(grid, cell, t)
+    assert K.LAUNCHES['bilateral_slice_aligned'] == before + 1
+    assert torch.equal(got, K.bilateral_slice_aligned_plain(grid, cell, t))
 
 
 @pytest.mark.cuda

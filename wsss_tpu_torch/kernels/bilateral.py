@@ -50,6 +50,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -138,6 +139,15 @@ def _blocks(units: int, blocks_per_sm: int, device: torch.device) -> int:
     return max(1, min(units, _sm_count(index) * blocks_per_sm))
 
 
+def _even_blocks(units: int, blocks_per_sm: int, device: torch.device
+                 ) -> int:
+    """Persistent blocks of a launch that walk consecutive shares of
+    `units`: as few as give each the same number of units as the most
+    the card holds at once would."""
+    per = -(-units // _blocks(units, blocks_per_sm, device))
+    return -(-units // per)
+
+
 def _pixel_geometry(h: int, w: int, t: int, device):
     """Per-row / per-column tile index and the two bilinear weights."""
     ys = torch.arange(h, device=device)
@@ -145,6 +155,16 @@ def _pixel_geometry(h: int, w: int, t: int, device):
     fy = (ys % t).to(torch.float32) / t
     fx = (xs % t).to(torch.float32) / t
     return ys // t, xs // t, (1.0 - fy, fy), (1.0 - fx, fx)
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_weights(t: int, device: torch.device) -> torch.Tensor:
+    """[2, t] f32: the bilinear weights 1 - i/t and i/t of an in-tile
+    offset i, computed by the ops the plain versions use.  (On the card
+    PyTorch divides by a number as a multiply by its reciprocal, so a
+    kernel takes this table rather than dividing by t itself.)"""
+    _, _, wy, _ = _pixel_geometry(t, 1, t, device)
+    return torch.stack(wy).contiguous()
 
 
 def corner_rows(cell: torch.Tensor, t: int, ny: int, nx: int, gc3: int,
@@ -420,9 +440,10 @@ def bilateral_slice(grid: torch.Tensor, cell: torch.Tensor, t: int
                          f'{tuple(grid.shape)} at t={t}')
     out = torch.empty((b, h, w, c), dtype=torch.float32, device=grid.device)
     fn = _build.entry('bilateral_slice',
-                      (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P))
-    rc = fn(grid.data_ptr(), cell.data_ptr(), out.data_ptr(), b, h, w, c, t,
-            gy, gx, gc ** 3, _stream())
+                      (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P))
+    rc = fn(grid.data_ptr(), cell.data_ptr(),
+            _tile_weights(t, grid.device).data_ptr(), out.data_ptr(), b, h,
+            w, c, t, gy, gx, gc ** 3, _stream())
     LAUNCHES['bilateral_slice'] += 1
     _raise_on(rc, 'bilateral_slice')
     return out
@@ -475,11 +496,109 @@ def bilateral_splat_tiles_plain(x: torch.Tensor, cell: torch.Tensor, t: int,
     return part.view(b, nty, ntx, 4, gc, gc, gc, c)
 
 
+# the tile splat's blocks: 256 threads, and shared memory for 4 of them
+# on an SM unless a large tile's staging needs more
+_SPLAT_TILES_THREADS = 256
+_SPLAT_TILES_SMEM = _SMEM_SM // 4 - 1024 - 4 * 32
+# a tile's pixel values are staged whole up to this many bytes, else
+# `chunk` pixels of a range at a time
+_SPLAT_TILES_STAGE = 16384
+# the kernel packs a pixel's place in its tile into 6 + 6 bits and its
+# cell in the range into the 19 above them
+_SPLAT_TILES_MAX_T = 64
+_SPLAT_TILES_MAX_CELLS = 1 << 19
+# ranges of at most 1/8 of a slab, so that a narrow slab (C 1) still
+# spreads over blocks
+_SPLAT_TILES_MIN_RANGES = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class SplatTilesPlan:
+    """How ``bilateral_splat_tiles`` cuts a tile's partials
+    [4, gc^3, C].
+
+    A unit of work is a tile and a range of `cells` consecutive colour
+    cells (`ranges` of them a slab, the last ragged; ``cut()``); a block
+    builds all four corners of a unit in shared memory, one segment of
+    `seg` floats a corner, the range at a 0-3 float offset that matches
+    the alignment of its run in device memory.  Behind the four
+    segments: the bilinear weights [2][t] (rounded up to 4 floats), the
+    tile's cells [t*t], the codes of the pixels in the range [t*t] and
+    pixel values: the whole tile's [t*t][C] (`chunk` 0) or `chunk` of the
+    range's pixels at a time [chunk][C]."""
+    gc: int
+    c: int
+    t: int
+    cells: int
+    ranges: int
+    chunk: int
+    seg: int
+    smem_bytes: int
+    threads: int
+    blocks_per_sm: int
+
+    def cut(self) -> List[Tuple[int, int]]:
+        """(first cell, cells) of each range, in order."""
+        gc3 = self.gc ** 3
+        return [(m0, min(self.cells, gc3 - m0))
+                for m0 in range(0, gc3, self.cells)]
+
+
+def _splat_tiles_fixed(c: int, t: int, chunk: int) -> int:
+    """Bytes of a block's shared memory besides the four segments."""
+    return 4 * (_round4(2 * t) + 2 * t * t + (chunk or t * t) * c)
+
+
+@functools.lru_cache(maxsize=None)
+def splat_tiles_plan(gc: int, c: int, t: int) -> SplatTilesPlan:
+    """The geometry of ``bilateral_splat_tiles`` for gc colour cells an
+    axis, C channels and t x t pixel tiles: the tile's values staged
+    whole where they take at most 16 KB; ranges as long as four corners
+    of them fit the block's share of shared memory (a quarter of an SM's,
+    or twice what the staging takes where that is more) and no longer
+    than 1/8 of the slab, cut as evenly as that number of ranges allows
+    in whole 128-byte lines of a corner's run where the range has room
+    for one.  ValueError where not even one cell of four corners fits, or
+    t is over 64."""
+    if gc < 1 or c < 1 or not 1 <= t <= _SPLAT_TILES_MAX_T:
+        raise ValueError(f'bilateral_splat_tiles takes gc >= 1, C >= 1 and '
+                         f't in 1..{_SPLAT_TILES_MAX_T}, got gc={gc}, '
+                         f'C={c}, t={t}')
+    gc3 = gc ** 3
+    chunk = (0 if 4 * t * t * c <= _SPLAT_TILES_STAGE
+             else min(t * t, max(8, min(64, 4096 // c))))
+    fixed = _splat_tiles_fixed(c, t, chunk)
+    budget = min(SMEM_BLOCK - 4 * 32, max(_SPLAT_TILES_SMEM, 2 * fixed))
+    seg_max = (budget - fixed) // 16 // 4 * 4         # floats a corner
+    most = min((seg_max - 3) // c, -(-gc3 // _SPLAT_TILES_MIN_RANGES),
+               _SPLAT_TILES_MAX_CELLS)
+    if most < 1:
+        raise ValueError(f'bilateral_splat_tiles: no plan fits a block of '
+                         f'{SMEM_BLOCK} bytes for gc={gc}, C={c}, t={t}: '
+                         f'not even one cell of four corners')
+    # the fewest cells whose run is whole 128-byte lines
+    line = 32 // math.gcd(c, 32)
+    if most >= line:
+        most = most // line * line
+    else:
+        line = 1
+    ranges = -(-gc3 // most)
+    even = -(-gc3 // ranges)
+    cells = -(-even // line) * line
+    ranges = -(-gc3 // cells)
+    seg = _round4(cells * c + 3)
+    smem = fixed + 16 * seg
+    return SplatTilesPlan(gc, c, t, cells, ranges, chunk, seg, smem,
+                          _SPLAT_TILES_THREADS,
+                          _blocks_per_sm(smem + 4 * 32,
+                                         _SPLAT_TILES_THREADS))
+
+
 def bilateral_splat_tiles(x: torch.Tensor, cell: torch.Tensor, t: int,
                           gc: int) -> torch.Tensor:
     """x [B,H,W,C] f32, cell [B,H,W] int32 -> per-tile partials
-    [B,nty,ntx,4,gc,gc,gc,C] (one launch; bit-equal to the plain
-    version)."""
+    [B,nty,ntx,4,gc,gc,gc,C] (one launch that writes every element once,
+    no memset; bit-equal to the plain version)."""
     if not _use_kernel(x, cell):
         return bilateral_splat_tiles_plain(x, cell, t, gc)
     _check(x, 'x', torch.float32, 4)
@@ -487,13 +606,18 @@ def bilateral_splat_tiles(x: torch.Tensor, cell: torch.Tensor, t: int,
     b, h, w, c = x.shape
     if tuple(cell.shape) != (b, h, w):
         raise ValueError(f'cell {tuple(cell.shape)} vs x {tuple(x.shape)}')
+    plan = splat_tiles_plan(gc, c, t)
     nty, ntx = -(-h // t), -(-w // t)
-    part = torch.zeros((b, nty, ntx, 4, gc, gc, gc, c), dtype=torch.float32,
+    part = torch.empty((b, nty, ntx, 4, gc, gc, gc, c), dtype=torch.float32,
                        device=x.device)
     fn = _build.entry('bilateral_splat_tiles',
-                      (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P))
-    rc = fn(x.data_ptr(), cell.data_ptr(), part.data_ptr(), b, h, w, c, t,
-            nty, ntx, gc ** 3, _stream())
+                      (_P, _P, _P, _P) + (_I,) * 15 + (_P,))
+    rc = fn(x.data_ptr(), cell.data_ptr(),
+            _tile_weights(t, x.device).data_ptr(), part.data_ptr(), b, h, w,
+            c, t, nty, ntx, gc ** 3, plan.cells, plan.ranges, plan.chunk,
+            plan.seg, plan.smem_bytes,
+            _even_blocks(b * nty * ntx * plan.ranges, plan.blocks_per_sm,
+                         x.device), plan.threads, _stream())
     LAUNCHES['bilateral_splat_tiles'] += 1
     _raise_on(rc, 'bilateral_splat_tiles')
     return part
@@ -689,10 +813,16 @@ def bilateral_slice_aligned_plain(grid: torch.Tensor, cell: torch.Tensor,
     return grid.reshape(-1, c)[rows]
 
 
+# the aligned slice's warps copy runs of 32 pixels x C floats, indexed in
+# 32 bits
+_SLICE_ALIGNED_MAX_C = 8192
+
+
 def bilateral_slice_aligned(grid: torch.Tensor, cell: torch.Tensor, t: int
                             ) -> torch.Tensor:
     """aligned grid [B,nty,ntx,gc,gc,gc,C] f32, cell [B,H,W] int32 ->
-    [B,H,W,C] (one launch; bit-equal to the plain version)."""
+    [B,H,W,C] (one launch, a warp a run of 32 pixels; bit-equal to the
+    plain version)."""
     if not _use_kernel(grid, cell):
         return bilateral_slice_aligned_plain(grid, cell, t)
     gc, c = _check_grid(grid)
@@ -702,6 +832,10 @@ def bilateral_slice_aligned(grid: torch.Tensor, cell: torch.Tensor, t: int
     if cell.shape[0] != b or nty != -(-h // t) or ntx != -(-w // t):
         raise ValueError(f'cell {tuple(cell.shape)} does not fit aligned '
                          f'grid {tuple(grid.shape)} at t={t}')
+    if grid.numel() // c >= 2 ** 31 or c > _SLICE_ALIGNED_MAX_C:
+        raise ValueError(f'aligned grid {tuple(grid.shape)}: the kernel '
+                         f'takes under 2^31 rows and C <= '
+                         f'{_SLICE_ALIGNED_MAX_C}')
     out = torch.empty((b, h, w, c), dtype=torch.float32, device=grid.device)
     fn = _build.entry('bilateral_slice_aligned',
                       (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P))

@@ -20,14 +20,16 @@
 // fast gather; here each thread takes one (pixel, channel) pair and reads
 // its 4 grid values directly.  With C innermost a warp's reads of one
 // corner are contiguous.  Arithmetic uses round-to-nearest intrinsics in
-// the plain version's order (no FMA contraction), so the result is
-// bit-equal to the plain PyTorch version on the card.
+// the plain version's order (no FMA contraction), and the weights come
+// from the wrapper as the plain version computes them (on the card
+// PyTorch divides by t as a multiply by 1/t), so the result is bit-equal
+// to the plain PyTorch version on the card at any t.
 #include <cuda_runtime.h>
 
 __global__ void bilateral_slice_kernel(
     const float* __restrict__ grid, const int* __restrict__ cell,
-    float* __restrict__ out, int B, int H, int W, int C, int t, int gy,
-    int gx, int gc3) {
+    const float* __restrict__ wts, float* __restrict__ out, int B, int H,
+    int W, int C, int t, int gy, int gx, int gc3) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   long long n = (long long)B * H * W * C;
   if (i >= n) return;
@@ -38,9 +40,8 @@ __global__ void bilateral_slice_kernel(
   int y = (int)(r % H);
   long long b = r / H;
   int m = cell[p];
-  float fy = (float)(y % t) / (float)t;
-  float fx = (float)(xx % t) / (float)t;
-  float wy0 = 1.0f - fy, wx0 = 1.0f - fx;
+  float wy0 = wts[y % t], fy = wts[t + y % t];
+  float wx0 = wts[xx % t], fx = wts[t + xx % t];
   long long sx = (long long)gc3 * C;
   long long sy = (long long)gx * sx;
   const float* g = grid + ((b * gy + y / t) * gx + xx / t) * sx
@@ -52,16 +53,19 @@ __global__ void bilateral_slice_kernel(
   out[i] = acc;
 }
 
-extern "C" int bilateral_slice(const void* grid, const void* cell, void* out,
-                               int B, int H, int W, int C, int t, int gy,
-                               int gx, int gc3, void* stream) {
+// wts [2][t] holds the bilinear weights 1 - i/t and i/t, as the plain
+// version computes them.
+extern "C" int bilateral_slice(const void* grid, const void* cell,
+                               const void* wts, void* out, int B, int H,
+                               int W, int C, int t, int gy, int gx, int gc3,
+                               void* stream) {
   long long n = (long long)B * H * W * C;
   if (n == 0) return 0;
   const int threads = 256;
   long long blocks = (n + threads - 1) / threads;
   bilateral_slice_kernel<<<(unsigned int)blocks, threads, 0,
                            (cudaStream_t)stream>>>(
-      (const float*)grid, (const int*)cell, (float*)out, B, H, W, C, t, gy,
-      gx, gc3);
+      (const float*)grid, (const int*)cell, (const float*)wts, (float*)out,
+      B, H, W, C, t, gy, gx, gc3);
   return (int)cudaGetLastError();
 }
