@@ -15,16 +15,17 @@ Phases, in order; any failure exits non-zero and prints no result:
                slice at SEC prediction's (5x7 ragged tiles, C 21 and
                C 1), at the wide path's (batch 2, 32x32 guide, C 40 and
                C 1) and, as an extra, at batch 8 (C 21 and C 40); the
-               cube blur on a cube too large for one block (gc 52, where
-               the tile splat is held too).  Error against the stated
-               tolerance (the v1 kernels, both colour blurs and the
+               v1 route's finest cube (gc 52, where the tile splat is
+               held too); the cube blur on the aligned filter's grid
+               (device times beside the previous design's).  Error
+               against the stated tolerance (the v1 kernels, both colour
+               blurs and the
                aligned slice: bit-equal, and the tile splat the same bits
                on two runs), and times from CUDA events (the median of
                one call, and a call's share of a CUDA graph of 10 calls
                back to back: the device's time) beside the bound and a
-               library call (the tile splat's and the aligned slice's
-               library calls in a graph too); the one-launch colour blur
-               against the one-pass cube blur on the v1 shapes (B 8
+               library call, timed both ways; the v2 route's colour blur
+               against the v1 route's cube blur on the v1 shapes (B 8
                223 MB, wide 33 MB, SEC 4 MB); the scatter grid's flat
                colour blur in its fused and split forms on the IRNet
                label CRF's grid (9 x 9 x 56^3 cells, C 21 and C 1) and
@@ -289,7 +290,8 @@ def phase_kernels(torch):
         results['bilateral_splat'].update(
             ms=cuda_ms(torch, splat), device_ms=burst_ms(torch, splat),
             plain_ms=cuda_ms(torch, splat_plain),
-            library_ms=cuda_ms(torch, splat_lib), bound_ms=bb, bound_by=bf)
+            library_ms=cuda_ms(torch, splat_lib), bound_ms=bb, bound_by=bf,
+            library_device_ms=burst_ms(torch, splat_lib))
 
         w3 = torch.tensor(geo.taps[::-1] + geo.taps[1:], device=dev)
         w3 = (w3[:, None, None] * w3[None, :, None] * w3[None, None, :])
@@ -311,7 +313,8 @@ def phase_kernels(torch):
                 ref_s, geo.taps)),
             plain_ms=cuda_ms(torch, lambda: K.bilateral_color_blur_plain(
                 ref_s, geo.taps), reps=20),
-            library_ms=cuda_ms(torch, blur_lib), bound_ms=bb, bound_by=bf)
+            library_ms=cuda_ms(torch, blur_lib), bound_ms=bb, bound_by=bf,
+            library_device_ms=burst_ms(torch, blur_lib, reps=3))
 
         n_pix = cell.numel()
         s_idx = torch.stack([
@@ -339,7 +342,8 @@ def phase_kernels(torch):
                                                                 t)),
             plain_ms=cuda_ms(torch, lambda: K.bilateral_slice_plain(
                 g_sp, cell, t)),
-            library_ms=cuda_ms(torch, slice_lib), bound_ms=bb, bound_by=bf)
+            library_ms=cuda_ms(torch, slice_lib), bound_ms=bb, bound_by=bf,
+            library_device_ms=burst_ms(torch, slice_lib))
     for name, r in results.items():
         print(f'[kernels] {name} C=21: {r["ms"]:.4f} ms{bursts(r)}, plain '
               f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} ms, '
@@ -497,7 +501,7 @@ def hold_v1_kernels(torch, K, geo, x, label):
         plain_ms=cuda_ms(torch, lambda: K.bilateral_fold_plain(part),
                          reps=10),
         library_ms=cuda_ms(torch, fold_lib, reps=10), bound_ms=bb,
-        bound_by=bf)
+        bound_by=bf, library_device_ms=burst_ms(torch, fold_lib, reps=3))
     del cols
     # fold + blur is two PyTorch calls (F.fold, conv3d): no single one
     bb, bf = bound_ms(pbytes + gbytes, (3 + 27) * fold.numel())
@@ -527,6 +531,7 @@ def hold_v1_kernels(torch, K, geo, x, label):
             fold, taps), reps=10),
         library_ms=cuda_ms(torch, blur_lib, reps=5, warmup=1),
         bound_ms=bb, bound_by=bf,
+        library_device_ms=burst_ms(torch, blur_lib, reps=3),
         color_blur_ms=cuda_ms(
             torch, lambda: K.bilateral_color_blur(fold, taps)))
     rows4 = torch.cat([r.reshape(-1) for r, _ in
@@ -558,6 +563,16 @@ def hold_v1_kernels(torch, K, geo, x, label):
 # extra that no path of this script runs on the v1 route
 V1_CASES = (('sec', 21, 'sec'), ('wide', 40, 'wide'),
             ('hsn', 21, 'b8'), ('hsn', 40, 'b8'))
+# the two cube blurs' device times in their previous design (blocks of a
+# node and two channels: this script on an H100 80GB HBM3 at 700 W, a
+# graph of 10 calls), for the log; scripts/time_tile_kernels.py --tree
+# times two checkouts in one run
+PARENT_DEVICE_MS = {'bilateral_fold_blur/sec_c21': '0.1074-0.1090',
+                    'bilateral_fold_blur/sec_c1': '0.0153-0.0154',
+                    'bilateral_fold_blur/b8_c21': '1.1499-1.1522',
+                    'bilateral_cube_blur/wide_c40': '0.1526-0.1530',
+                    'bilateral_cube_blur/b8_c21': '0.6445-0.6460',
+                    'gc52': '0.34-0.35 a call'}
 # where each v1 kernel's headline numbers come from: the path that
 # launches it most, at the message filter's width
 V1_HEADLINE = {'bilateral_splat_tiles': 'sec_c21',
@@ -609,11 +624,12 @@ def phase_kernels_v1(torch, results):
     for name, case in V1_HEADLINE.items():
         results[name].update(results[name]['cases'][case], shape=case)
 
-    # a cube no block can hold: srgb 5 -> gc 52, 562 KB for one channel
+    # the v1 route's finest cube on the paths' guides: srgb 5 -> gc 52, a
+    # cg row past the register row phase's 24 cells
     big = mxu_grid.MXUBilateralGrid(guide[:1], 8.0, 5.0, 1)
-    nc, planes = K.cube_tiling(big.gc, 1)
+    plan = K.cube_blur_plan(big.gc, 1, 1, big.gy * big.gx)
     check(big.gc == 52 and not big.v2 and not big.fuse_combine_blur
-          and planes < big.gc, f'large-cube case changed: gc {big.gc}')
+          and not plan.reg_rows, f'large-cube case changed: gc {big.gc}')
     ones = torch.ones((1, GUIDE, GUIDE, 1), device=dev)
     part = K.bilateral_splat_tiles(ones, big.cell, big.t, big.gc)
     check(torch.equal(part, K.bilateral_splat_tiles_plain(
@@ -621,16 +637,31 @@ def phase_kernels_v1(torch, results):
         'bilateral_splat_tiles gc=52 C=1 is not bit-equal to its plain '
         'version')
     grid = K.bilateral_fold(part)
+    hold_bit_equal(torch, 'bilateral_fold_blur', 'gc=52 C=1 B=1',
+                   K.bilateral_fold_blur(part, big.taps),
+                   K.bilateral_fold_blur_plain(part, big.taps))
+    hold_bit_equal(torch, 'bilateral_cube_blur', 'gc=52 C=1 B=1',
+                   K.bilateral_cube_blur(grid, big.taps),
+                   K.bilateral_cube_blur_plain(grid, big.taps))
     del part
-    got = K.bilateral_cube_blur(grid, big.taps)
-    check(torch.equal(got, K.bilateral_cube_blur_plain(grid, big.taps)),
-          'bilateral_cube_blur gc=52 is not bit-equal to its plain version')
     ms = cuda_ms(torch, lambda: K.bilateral_cube_blur(grid, big.taps))
+    dms = burst_ms(torch, lambda: K.bilateral_cube_blur(grid, big.taps))
     bb, _ = bound_ms(2 * grid.numel() * 4, 27 * grid.numel())
-    print(f'[kernels] bilateral_splat_tiles and bilateral_cube_blur gc=52 '
-          f'C=1 B=1 ({planes} of 52 cr-planes a block): bit-equal; cube '
-          f'blur {ms:.4f} ms, bound {bb:.4f} ms')
+    print(f'[kernels] bilateral_splat_tiles, bilateral_fold_blur and '
+          f'bilateral_cube_blur gc=52 C=1 B=1 ({plan.slabs} cr slabs of '
+          f'{plan.nl} planes a node): bit-equal; cube blur {ms:.4f} ms, on '
+          f'the device {dms:.4f} ms (the previous design '
+          f'{PARENT_DEVICE_MS["gc52"]}), '
+          f'bound {bb:.4f} ms')
     results['bilateral_cube_blur']['gc52_ms'] = ms
+    results['bilateral_cube_blur']['cases']['gc52_c1'] = dict(
+        ms=ms, device_ms=dms, bound_ms=bb, bound_by='bytes')
+    for name in ('bilateral_fold_blur', 'bilateral_cube_blur'):
+        for case, r in results[name]['cases'].items():
+            parent = PARENT_DEVICE_MS.get(f'{name}/{case}')
+            if 'device_ms' in r and parent:
+                print(f'[kernels] {name} {case}: {r["device_ms"]:.4f} ms on '
+                      f'the device; the previous design {parent}')
 
 
 def phase_main(torch):
@@ -773,6 +804,10 @@ def phase_sec(torch):
     mxu_grid._V2_DISABLED = True        # what WSSS_TPU_MXU_V1=1 sets
     try:
         labels_v1, launches_v1 = run('the SEC path, v1 route', V1_FUSED)
+        check(launches_v1['bilateral_fold_blur'] == want,
+              f'bilateral_fold_blur launched '
+              f'{launches_v1["bilateral_fold_blur"]} times on the SEC v1 '
+              f'route, expected {want}')
         crf_v1_ms = stage_ms()[1]
         q_v1 = mean_field(probs, guide, cfg)
         with K.plain_versions():
@@ -828,6 +863,11 @@ def phase_wide(torch):
           f'{launches}')
     check_launches(launches, V1_UNFUSED + ('bilateral_fold_blur',),
                    'the wide path')
+    # the C 1 normalizer on the fused route, one message a iteration on
+    # the unfused one
+    check(launches['bilateral_fold_blur'] == 1
+          and launches['bilateral_cube_blur'] == cfg.iterations,
+          f'cube blurs on the wide path: {launches}')
     check(torch.isfinite(q).all() and q.shape == probs.shape, 'Q not finite')
     check(float((q.sum(-1) - 1).abs().max()) < 1e-4, 'Q rows do not sum to 1')
     ms = cuda_ms(torch, lambda: mean_field(probs, imgs, cfg), reps=5,
@@ -1048,6 +1088,23 @@ def phase_kernels_aligned(torch, results):
                'bilateral_slice_aligned': {'max_abs_err': hold_bit_equal(
                    torch, 'bilateral_slice_aligned', label, got_l, ref_l)}}
         del got_s, got_l
+        if case == 'b8_gc16':
+            # the aligned filter's cube blur, on the splatted grid
+            label_c = f'aligned {label}'
+            err = hold_bit_equal(
+                torch, 'bilateral_cube_blur', label_c,
+                K.bilateral_cube_blur(ref_s, geo.taps),
+                K.bilateral_cube_blur_plain(ref_s, geo.taps))
+            bb, bf = bound_ms(2 * ref_s.numel() * 4, 27 * ref_s.numel())
+            r = results['bilateral_cube_blur']['cases']['aligned_b8'] = dict(
+                max_abs_err=err,
+                ms=cuda_ms(torch, lambda: K.bilateral_cube_blur(
+                    ref_s, geo.taps)),
+                device_ms=burst_ms(torch, lambda: K.bilateral_cube_blur(
+                    ref_s, geo.taps)), bound_ms=bb, bound_by=bf)
+            print(f'[kernels] bilateral_cube_blur {label_c}: {r["ms"]:.4f} '
+                  f'ms{bursts(r)}, bound {bb:.4f} ms ({bf})')
+            torch.cuda.empty_cache()
         if case != 'ragged':
             rows = K._tile_rows(cell, t, gc ** 3)
             flat_rows, vals = rows.reshape(-1), x.reshape(-1, c)
@@ -1069,7 +1126,8 @@ def phase_kernels_aligned(torch, results):
                                  K.bilateral_splat_aligned_plain(
                                      x, cell, t, gc), reps=10),
                 library_ms=cuda_ms(torch, splat_lib, reps=10),
-                bound_ms=bb, bound_by=bf)
+                bound_ms=bb, bound_by=bf,
+                library_device_ms=burst_ms(torch, splat_lib))
             touched = int(torch.unique(flat_rows).numel())
             bb, bf = bound_ms(touched * c * 4 + cell.numel() * 4
                               + ref_l.numel() * 4, 0)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Device time of the v1 route's tile splat and of the aligned slice of
-one tree of wsss_tpu_torch, on one CUDA card, beside their yardsticks.
+"""Device time of the v1 route's tile splat and cube blurs and of the
+aligned slice of one tree of wsss_tpu_torch, on one CUDA card, beside
+their yardsticks.
 
-    python3 scripts/time_tile_kernels.py [--tree DIR]
+    python3 scripts/time_tile_kernels.py [--tree DIR] [--only NAME ...]
 
 Imports wsss_tpu_torch from DIR (default: this repository; another
 checkout, such as a `git archive` of an earlier commit, compares two
@@ -15,7 +16,16 @@ the shapes chip_smoke.py gives them:
     ``fill_`` of the partials' bytes (how fast the card writes them);
   * bilateral_slice_aligned (K10) at batch 8, 321^2, t 20, gc 16 and
     gc 21, C 21, against one advanced-index gather with the rows
-    precomputed.
+    precomputed;
+  * bilateral_fold_blur (K6) on seeded partials and bilateral_cube_blur
+    (K8) on seeded grids of every shape chip_smoke.py and the card tests
+    give them: SEC prediction's v1 grid (B 1, 5x7 tiles, gc 16; C 21,
+    C 1), the wide path's (B 2, 4x4 tiles; C 40, C 1), batch 8 (8x8
+    tiles; C 21, C 40), the finest cubes (gc 52 and 64, C 1), gc 16 C 64
+    and gc 24 C 42, and for K8 the aligned filter's grid (B 8, 17x17,
+    C 21), each held bit-equal to the tree's plain version.
+--only picks some of bilateral_splat_tiles, bilateral_slice_aligned,
+bilateral_fold_blur and bilateral_cube_blur.
 Each time is chip_smoke.py's: `ms` one call between CUDA events (host
 work included), `device_ms` a call's share of a CUDA graph of 10 calls
 back to back (the device's time).
@@ -130,10 +140,56 @@ def time_slice_aligned(torch, cs, K, mxu_grid, cell_mult):
     return out
 
 
+# (kernel, case, shape): K6 on partials [B, nty, ntx, 4, gc, gc, gc, C],
+# K8 on a grid [B, gy, gx, gc, gc, gc, C]: every shape chip_smoke.py and
+# the card tests give them
+_GRIDS = (('sec_c21', (1, 5, 7), 16, 21), ('sec_c1', (1, 5, 7), 16, 1),
+          ('wide_c40', (2, 4, 4), 16, 40), ('wide_c1', (2, 4, 4), 16, 1),
+          ('b8_c21', (8, 8, 8), 16, 21), ('b8_c40', (8, 8, 8), 16, 40),
+          ('gc52_c1', (1, 8, 8), 52, 1), ('gc64_c1', (2, 2, 3), 64, 1),
+          ('gc16_c64', (2, 2, 3), 16, 64), ('gc24_c42', (2, 2, 3), 24, 42))
+CUBE_CASES = tuple(
+    ('bilateral_fold_blur', case, (b, ty, tx, 4) + (gc,) * 3 + (c,))
+    for case, (b, ty, tx), gc, c in _GRIDS) + tuple(
+    ('bilateral_cube_blur', case, (b, ty + 1, tx + 1) + (gc,) * 3 + (c,))
+    for case, (b, ty, tx), gc, c in _GRIDS) + (
+    ('bilateral_cube_blur', 'aligned_b8', (8, 17, 17, 16, 16, 16, 21)),)
+
+
+def time_cube_blurs(torch, cs, K, mxu_grid, only):
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    taps = mxu_grid._blur_taps(0.913)[2:]
+    out = {}
+    for name, case, shape in CUBE_CASES:
+        if name not in only:
+            continue
+        x = torch.rand(shape, generator=gen, device='cuda')
+        kernel, plain = getattr(K, name), getattr(K, name + '_plain')
+        got = kernel(x, taps)
+        cs.check(torch.equal(got, plain(x, taps)),
+                 f'{name} {case} is not bit-equal to its plain version')
+        bb, _ = cs.bound_ms(x.numel() * 4 + got.numel() * 4, 0)
+        del got
+        torch.cuda.empty_cache()
+        out.setdefault(name, {})[case] = dict(
+            ms=cs.cuda_ms(torch, lambda: kernel(x, taps)),
+            device_ms=cs.burst_ms(torch, lambda: kernel(x, taps)),
+            bound_ms=bb)
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+KERNELS = ('bilateral_splat_tiles', 'bilateral_slice_aligned',
+           'bilateral_fold_blur', 'bilateral_cube_blur')
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--tree', default=str(ROOT),
                     help='checkout whose wsss_tpu_torch is timed')
+    ap.add_argument('--only', nargs='+', choices=KERNELS, default=KERNELS,
+                    help='the kernels to time (default: all)')
     args = ap.parse_args()
     tree = pathlib.Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -147,19 +203,24 @@ def main():
     cs.check(pathlib.Path(K.__file__).resolve().is_relative_to(tree),
              f'wsss_tpu_torch came from {K.__file__}, not {tree}')
     build.build()
-    res = {'tree': str(tree), 'card': smi,
-           'bilateral_splat_tiles': time_splat_tiles(
-               torch, cs, K, mxu_grid, MXU_CELL_MULT),
-           'bilateral_slice_aligned': time_slice_aligned(
-               torch, cs, K, mxu_grid, MXU_CELL_MULT)}
-    for name in ('bilateral_splat_tiles', 'bilateral_slice_aligned'):
-        for key, r in res[name].items():
+    res = {'tree': str(tree), 'card': smi}
+    if 'bilateral_splat_tiles' in args.only:
+        res['bilateral_splat_tiles'] = time_splat_tiles(
+            torch, cs, K, mxu_grid, MXU_CELL_MULT)
+    if 'bilateral_slice_aligned' in args.only:
+        res['bilateral_slice_aligned'] = time_slice_aligned(
+            torch, cs, K, mxu_grid, MXU_CELL_MULT)
+    res.update(time_cube_blurs(torch, cs, K, mxu_grid, args.only))
+    for name in KERNELS:
+        for key, r in res.get(name, {}).items():
             fill = (f'; fill_ {r["fill_device_ms"]:.4f}'
                     if 'fill_device_ms' in r else '')
+            lib = (f'; library {r["library_ms"]:.4f} / '
+                   f'{r["library_device_ms"]:.4f}'
+                   if 'library_ms' in r else '')
             print(f'[time] {name} {key}: {r["ms"]:.4f} ms a call, '
-                  f'{r["device_ms"]:.4f} on the device; library '
-                  f'{r["library_ms"]:.4f} / {r["library_device_ms"]:.4f}'
-                  f'{fill}; bound {r["bound_ms"]:.4f} ms')
+                  f'{r["device_ms"]:.4f} on the device{lib}{fill}; bound '
+                  f'{r["bound_ms"]:.4f} ms')
     print(json.dumps(res))
 
 

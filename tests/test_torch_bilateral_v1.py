@@ -205,13 +205,3 @@ def test_fused_and_cube_blur_plain_are_fold_then_colour_blur():
     for axis in (3, 4, 5):
         g64 = np.moveaxis(np.tensordot(band, g64, axes=(1, axis)), 0, axis)
     np.testing.assert_allclose(want.numpy(), g64, rtol=1e-5, atol=1e-6)
-
-
-@pytest.mark.parametrize('gc,c,want', [
-    (16, 21, (2, 16)), (16, 40, (2, 16)), (16, 1, (1, 16)),
-    (4, 33, (33, 4)), (24, 3, (1, 24)), (52, 1, (1, 8)), (64, 1, (1, 5))])
-def test_cube_tiling_fits_a_block(gc, c, want):
-    nc, planes = K.cube_tiling(gc, c)
-    assert (nc, planes) == want
-    assert 1 <= nc <= c and 1 <= planes <= gc
-    assert nc * (2 * planes + 4) * gc * gc * 4 <= 227 * 1024

@@ -220,19 +220,76 @@ def test_splat_tiles_writes_every_element_on_card(cuda_device, c):
 
 @pytest.mark.cuda
 def test_cube_blur_cuts_a_large_cube_on_card(cuda_device):
-    """gc 52 (srgb 5): one channel's cube is 562 KB, more than a block's
-    shared memory, so the kernel cuts it along cr; still bit-equal."""
+    """gc 52 (srgb 5): a cg row is past the register row phase's 24
+    cells, so the plan blurs cg and cb element by element, and its 4
+    nodes are cut into cr slabs; still bit-equal."""
     gen = torch.Generator(device=cuda_device).manual_seed(2)
     grid = torch.rand((1, 2, 2, 52, 52, 52, 1), generator=gen,
                       device=cuda_device)
     taps = mxu_grid._blur_taps(0.913)[2:]
-    assert K.cube_tiling(52, 1) == (1, 8)
+    plan = K.cube_blur_plan(52, 1, 1, 4)
+    assert not plan.reg_rows and plan.slabs > 1, plan
     assert torch.equal(K.bilateral_cube_blur(grid, taps),
                        K.bilateral_cube_blur_plain(grid, taps))
     part = torch.rand((1, 1, 1, 4, 52, 52, 52, 1), generator=gen,
                       device=cuda_device)
     assert torch.equal(K.bilateral_fold_blur(part, taps),
                        K.bilateral_fold_blur_plain(part, taps))
+
+
+# (gc, C): the ends of the v1 route's range: the finest cube, the widest
+# channel count at gc 16, and the largest plane (gc 24, C 42: 97 KB)
+CUBE_EDGE_CASES = [(64, 1), (16, 64), (24, 42)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('gc,c', CUBE_EDGE_CASES)
+def test_cube_blurs_at_the_v1_range_ends_on_card(cuda_device, gc, c):
+    """Both cube blurs bit-equal to their plain versions on 2 x 2x3 tiles
+    at the ends of the v1 route's (gc, C) range, one launch each, and
+    every output element written: the output comes back from the caching
+    allocator as a freed block of NaNs and keeps none."""
+    gen = torch.Generator(device=cuda_device).manual_seed(gc + c)
+    taps = mxu_grid._blur_taps(0.913)[2:]
+    part = torch.rand((2, 2, 3, 4, gc, gc, gc, c), generator=gen,
+                      device=cuda_device)
+    shape = (2, 3, 4, gc, gc, gc, c)
+    for name, fn, plain, arg in (
+            ('bilateral_fold_blur', K.bilateral_fold_blur,
+             K.bilateral_fold_blur_plain, part),
+            ('bilateral_cube_blur', K.bilateral_cube_blur,
+             K.bilateral_cube_blur_plain, K.bilateral_fold_plain(part))):
+        want = plain(arg, taps)
+        poison = torch.full(shape, float('nan'), device=cuda_device)
+        ptr = poison.data_ptr()
+        del poison
+        before = K.LAUNCHES[name]
+        got = fn(arg, taps)
+        assert K.LAUNCHES[name] == before + 1
+        assert got.data_ptr() == ptr and got.shape == want.shape, name
+        assert not torch.isnan(got).any(), name
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('t', [24, 40, 48])
+def test_splat_is_bit_equal_without_collisions_on_card(cuda_device, t):
+    """t 24, 40 and 48 are no powers of two, so a weight i/t divided in a
+    kernel would differ from the plain version's (PyTorch multiplies by
+    1/t on the card).  With no two pixels of a node's 2t x 2t
+    neighbourhood in one colour cell, no two atomic adds meet and the
+    splat equals its plain version bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(t)
+    h, w, gc, c = 2 * t + 5, 3 * t - 7, 22, 3
+    assert gc ** 3 >= 4 * t * t
+    ys = torch.arange(h, device=cuda_device) % (2 * t)
+    xs = torch.arange(w, device=cuda_device) % (2 * t)
+    cell = (ys[:, None] * 2 * t + xs[None, :]).to(torch.int32)
+    cell = cell[None].expand(2, h, w).contiguous()
+    x = torch.rand((2, h, w, c), generator=gen, device=cuda_device)
+    gy, gx = -(-h // t) + 1, -(-w // t) + 1
+    got = K.bilateral_splat(x, cell, t, gy, gx, gc)
+    assert torch.equal(got, K.bilateral_splat_plain(x, cell, t, gy, gx, gc))
 
 
 @pytest.mark.cuda

@@ -234,9 +234,10 @@ def bilateral_splat(x: torch.Tensor, cell: torch.Tensor, t: int, gy: int,
     grid = torch.zeros((b, gy, gx, gc, gc, gc, c), dtype=torch.float32,
                        device=x.device)
     fn = _build.entry('bilateral_splat',
-                      (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P))
-    rc = fn(x.data_ptr(), cell.data_ptr(), grid.data_ptr(), b, h, w, c, t,
-            gy, gx, gc ** 3, _stream())
+                      (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P))
+    rc = fn(x.data_ptr(), cell.data_ptr(),
+            _tile_weights(t, x.device).data_ptr(), grid.data_ptr(), b, h, w,
+            c, t, gy, gx, gc ** 3, _stream())
     LAUNCHES['bilateral_splat'] += 1
     _raise_on(rc, 'bilateral_splat')
     return grid
@@ -667,26 +668,169 @@ def bilateral_fold(part: torch.Tensor) -> torch.Tensor:
     return grid
 
 
-# shared memory of one block of the cube-blur kernels: the budget keeps
-# three blocks on an SM where the cube allows it
-_SMEM_BUDGET = 74 * 1024
+# the v1 route's two cube blurs (fold + blur, blur): a (cg, channel) row
+# in registers up to gc 24 (K2's row phase) where at least 256 rows keep
+# half the block busy, in blocks of 512 threads at up to 128 registers;
+# else element-parallel cg and cb passes through a second shared-memory
+# plane, in blocks of 128-256 threads at up to 64 registers
+_CUBE_BLUR_REG_GC = 24
+_CUBE_BLUR_REG_ROWS = 256
+# channels of a group where whole planes of all C do not fit: 8 floats are
+# one 32-byte sector, small enough for two blocks an SM
+_CUBE_BLUR_GROUP = 8
+# for the choice of slabs: an H100's SMs; a unit's fixed cost (its first
+# planes' round trip, the steps' barriers) in plane steps; the bytes an SM
+# moves in one plane step's time (~25 GB/s, an SM's share of the memory
+# rate, over ~1 us a step)
+_SMS = 132
+_CUBE_BLUR_UNIT_COST = 4
+_CUBE_BLUR_STEP_BYTES = 25600
 
 
-def cube_tiling(gc: int, c: int):
-    """(nc, planes): how a block of the cube-blur kernels cuts a node's
-    [gc, gc, gc, C] cube.  It holds nc channels of `planes` cr-planes
-    plus a 2-plane halo on each side, and a second buffer of `planes`
-    planes: nc * (2 * planes + 4) * gc^2 floats.  Whole cubes (planes =
-    gc, no halo re-read) of as many channels as the budget holds; a cube
-    too large for one channel (gc 52: 562 KB) is cut along cr."""
-    plane = gc * gc * 4
-    nc = min(c, _SMEM_BUDGET // ((2 * gc + 4) * plane))
-    if nc >= 1:
-        return nc, gc
-    planes = min(gc, (SMEM_BLOCK // plane - 4) // 2)
-    if planes < 1:
-        raise ValueError(f'colour cube with gc={gc} does not fit a block')
-    return 1, planes
+@dataclasses.dataclass(frozen=True)
+class CubeBlurPlan:
+    """How ``bilateral_cube_blur`` (corners 1) and ``bilateral_fold_blur``
+    (corners 4: the fold's four partials) cut a node's [gc, gc, gc, C]
+    cube.
+
+    A unit of work is a node, a slab of `nl` output cr-planes (`slabs`
+    of them, the last ragged; ``slab_cut()``) and a group of `nc`
+    consecutive channels (``channel_groups()``).  A block streams the
+    slab's input planes (the slab and 2 planes of halo each side, inside
+    the cube) through shared memory with cp.async copies (16-byte words
+    where aligned): one plane (all C: one contiguous span; fewer: gc^2
+    runs of nc) a slot of `slot` floats.  Corners 1: a ring of 5 + `in_flight` slots, from float
+    0.  Corners 4: a landing area of `in_flight` planes of 4 slots (the
+    four partials' planes, in flight) from float 0, folded into a ring of
+    5 slots from float `buf_ring`.  Then the work plane A ([gc + 4][gc][nc]
+    from float `buf_a`, 3 floats of room to align it) and, for the
+    element-parallel row phase (`reg_rows` false), the plane B from float
+    `buf_b`."""
+    gc: int
+    c: int
+    corners: int
+    nc: int
+    slabs: int
+    nl: int
+    in_flight: int
+    reg_rows: bool
+    slot: int
+    buf_ring: int
+    buf_a: int
+    buf_b: int
+    smem_bytes: int
+    threads: int
+    blocks_per_sm: int
+
+    @property
+    def groups(self) -> int:
+        return -(-self.c // self.nc)
+
+    def channel_groups(self) -> List[Tuple[int, int]]:
+        """(first channel, channels) of each group, in unit order."""
+        return [(c0, min(self.nc, self.c - c0))
+                for c0 in range(0, self.c, self.nc)]
+
+    def slab_cut(self) -> List[Tuple[int, int]]:
+        """(first output plane, planes) of each slab, in unit order."""
+        return [(l0, min(self.nl, self.gc - l0))
+                for l0 in range(0, self.gc, self.nl)]
+
+
+def _cube_blur_layout(gc: int, nc: int, whole: bool, corners: int, f: int,
+                      reg_rows: bool):
+    """(slot, buf_ring, buf_a, buf_b, smem bytes) of one plan."""
+    plane = gc * gc * nc
+    # a whole plane lands at a 0-3 float offset in its slot
+    slot = _round4(plane + 3) if whole else _round4(plane)
+    if corners == 1:
+        buf_ring = 0
+        buf_a = (5 + f) * slot
+    else:
+        buf_ring = f * corners * slot
+        buf_a = buf_ring + 5 * _round4(plane)
+    buf_b = buf_a + _round4((gc + 4) * gc * nc + 3)
+    end = buf_b + (0 if reg_rows else _round4(plane))
+    return slot, buf_ring, buf_a, buf_b, 4 * end
+
+
+@functools.lru_cache(maxsize=None)
+def cube_blur_plan(gc: int, c: int, corners: int, nodes: int
+                   ) -> CubeBlurPlan:
+    """The geometry of the v1 route's cube blurs for gc colour cells an
+    axis, C channels, `corners` partials a plane (1: the grid, 4: the
+    fold's) and `nodes` nodes: whole planes of all C where a pipeline of
+    them fits a block, else even groups of up to 8 consecutive channels
+    (of a multiple of 4 where C is one, so that their runs copy in
+    16-byte words); the row phase in registers where a plane has >= 256
+    (cg, channel) rows and gc <= 24; up to 3 planes in flight, as many as
+    keep two blocks an SM where one plane in flight allows two; then the
+    number of cr slabs a node is cut into that finishes soonest on 132
+    SMs: the longer of a block's chain of plane steps and the busiest
+    SM's bytes over its share of the memory rate (the finer cut on a
+    tie).  ValueError where not even one channel's planes fit a block."""
+    if gc < 1 or c < 1 or corners not in (1, 4) or nodes < 1:
+        raise ValueError(f'cube blur takes gc >= 1, C >= 1, corners 1 or 4 '
+                         f'and nodes >= 1, got gc={gc}, C={c}, '
+                         f'corners={corners}, nodes={nodes}')
+
+    def fit(nc):
+        """(in_flight, reg_rows, layout, threads, blocks an SM), or None:
+        the most planes in flight that keep two blocks an SM where one
+        plane in flight allows two."""
+        reg = gc <= _CUBE_BLUR_REG_GC and gc * nc >= _CUBE_BLUR_REG_ROWS
+        threads = 512 if reg else min(256, max(128, _pow2(gc * gc * nc // 4)))
+        found = []
+        for f in (1, 2, 3):
+            layout = _cube_blur_layout(gc, nc, nc == c, corners, f, reg)
+            if layout[-1] > SMEM_BLOCK:
+                break
+            bps = 1 if reg else min(_blocks_per_sm(layout[-1], threads),
+                                    65536 // (threads * 64))
+            found.append((f, reg, layout, threads, bps))
+        want = min(2, found[0][-1]) if found else 0
+        return ([p for p in found if p[-1] >= want] or [None])[-1]
+
+    # whole planes of all C, else groups of up to 8 channels (of 4 or 8
+    # where C is a multiple of 4: runs that copy in 16-byte words), as
+    # even as their number allows
+    if fit(c) is not None:
+        nc = c
+    else:
+        for nc in range(min(c, _CUBE_BLUR_GROUP), 0, -1):
+            if fit(nc) is not None:
+                break
+        else:
+            raise ValueError(f'cube blur: no plan fits a block of '
+                             f'{SMEM_BLOCK} bytes for gc={gc}, C={c}, '
+                             f'corners={corners}: not even one channel\'s '
+                             f'planes')
+        if c % 4 == 0 and nc >= 4:
+            nc = nc // 4 * 4
+        else:
+            nc = -(-c // -(-c // nc))
+    f, reg, (slot, buf_ring, buf_a, buf_b, smem), threads, bps = fit(nc)
+    groups = -(-c // nc)
+
+    def cost(slabs):
+        # the longer of a block's chain of plane steps (its units in turn,
+        # each its planes read and written and a fixed cost) and the
+        # busiest SM's bytes
+        nl = -(-gc // slabs)
+        n = -(-gc // nl)                       # slabs of nl planes
+        cut = [(min(gc, l0 + nl + 2) - max(0, l0 - 2), min(nl, gc - l0))
+               for l0 in range(0, gc, nl)]
+        units = nodes * groups * n
+        steps = -(-units // (_SMS * bps)) * (
+            max(i + o for i, o in cut) + _CUBE_BLUR_UNIT_COST)
+        moved = -(-units // _SMS) * max(i * corners + o for i, o in cut) \
+            * 4 * gc * gc * nc / _CUBE_BLUR_STEP_BYTES
+        return max(steps, moved), -n, nl
+
+    _, slabs, nl = min(cost(s) for s in range(1, gc + 1))
+    slabs = -slabs
+    return CubeBlurPlan(gc, c, corners, nc, slabs, nl, f, reg, slot,
+                        buf_ring, buf_a, buf_b, smem, threads, bps)
 
 
 def bilateral_fold_blur_plain(part: torch.Tensor, taps: Sequence[float],
@@ -700,18 +844,25 @@ def bilateral_fold_blur_plain(part: torch.Tensor, taps: Sequence[float],
 def bilateral_fold_blur(part: torch.Tensor, taps: Sequence[float]
                         ) -> torch.Tensor:
     """partials [B,nty,ntx,4,gc,gc,gc,C] f32 -> folded grid blurred along
-    cr, cg, cb, in one launch (bit-equal to the plain version)."""
+    cr, cg, cb, in one launch that reads each partial once and writes the
+    grid once (bit-equal to the plain version)."""
     if not _use_kernel(part):
         return bilateral_fold_blur_plain(part, taps)
     b, nty, ntx, gc, c = _check_partials(part)
-    nc, planes = cube_tiling(gc, c)
+    nodes = b * (nty + 1) * (ntx + 1)
+    plan = cube_blur_plan(gc, c, 4, nodes)
     t0, t1, t2 = (float(v) for v in taps)
     grid = torch.empty((b, nty + 1, ntx + 1, gc, gc, gc, c),
                        dtype=torch.float32, device=part.device)
     fn = _build.entry('bilateral_fold_blur',
-                      (_P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P))
+                      (_P, _P) + (_I,) * 18 + (_F, _F, _F, _P))
     rc = fn(part.data_ptr(), grid.data_ptr(), b, nty + 1, ntx + 1, gc, c,
-            nc, planes, t0, t1, t2, _stream())
+            plan.nc, plan.groups, plan.slabs, plan.nl, plan.in_flight,
+            int(plan.reg_rows), plan.slot, plan.buf_ring, plan.buf_a,
+            plan.buf_b, plan.smem_bytes,
+            _even_blocks(nodes * plan.slabs * plan.groups,
+                         plan.blocks_per_sm, part.device),
+            plan.threads, t0, t1, t2, _stream())
     LAUNCHES['bilateral_fold_blur'] += 1
     _raise_on(rc, 'bilateral_fold_blur')
     return grid
@@ -733,14 +884,19 @@ def bilateral_cube_blur(grid: torch.Tensor, taps: Sequence[float]
     if not _use_kernel(grid):
         return bilateral_cube_blur_plain(grid, taps)
     gc, c = _check_grid(grid)
-    nc, planes = cube_tiling(gc, c)
+    nodes = grid.shape[0] * grid.shape[1] * grid.shape[2]
+    plan = cube_blur_plan(gc, c, 1, nodes)
     t0, t1, t2 = (float(v) for v in taps)
     out = torch.empty_like(grid)
     fn = _build.entry('bilateral_cube_blur',
-                      (_P, _P, _LL, _I, _I, _I, _I, _F, _F, _F, _P))
-    rc = fn(grid.data_ptr(), out.data_ptr(),
-            grid.shape[0] * grid.shape[1] * grid.shape[2], gc, c, nc,
-            planes, t0, t1, t2, _stream())
+                      (_P, _P, _LL) + (_I,) * 14 + (_F, _F, _F, _P))
+    rc = fn(grid.data_ptr(), out.data_ptr(), nodes, gc, c, plan.nc,
+            plan.groups, plan.slabs, plan.nl, plan.in_flight,
+            int(plan.reg_rows), plan.slot, plan.buf_a, plan.buf_b,
+            plan.smem_bytes,
+            _even_blocks(nodes * plan.slabs * plan.groups,
+                         plan.blocks_per_sm, grid.device),
+            plan.threads, t0, t1, t2, _stream())
     LAUNCHES['bilateral_cube_blur'] += 1
     _raise_on(rc, 'bilateral_cube_blur')
     return out

@@ -9,6 +9,10 @@
 //     G[b, y/t + by, x/t + bx, cell(p), c] += w_by(y) * w_bx(x) * X[b, p, c]
 // with bilinear spatial weights w_0 = 1 - (y mod t)/t, w_1 = (y mod t)/t
 // and the pixel's nearest colour cell cell(p) = (cr*gc + cg)*gc + cb.
+// The weights come in as a [2, t] table that the plain version's own ops
+// computed (on the card PyTorch divides by t as a multiply by 1/t, which
+// a division here would not match for t 24, 40, 48); a pixel's value is
+// (w_by * w_bx) * x, the plain version's order of multiplies.
 // G is the canonical grid [B, gy, gx, gc, gc, gc, C] in f32, C innermost;
 // the caller zeroes it.
 //
@@ -29,8 +33,8 @@
 
 __global__ void bilateral_splat_kernel(
     const float* __restrict__ x, const int* __restrict__ cell,
-    float* __restrict__ grid, int B, int H, int W, int C, int t, int gy,
-    int gx, int gc3) {
+    const float* __restrict__ wt, float* __restrict__ grid, int B, int H,
+    int W, int C, int t, int gy, int gx, int gc3) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   long long n = (long long)B * H * W * C;
   if (i >= n) return;
@@ -42,9 +46,9 @@ __global__ void bilateral_splat_kernel(
   long long b = r / H;
   float v = x[i];
   int m = cell[p];
-  float fy = (float)(y % t) / (float)t;
-  float fx = (float)(xx % t) / (float)t;
-  float wy0 = 1.0f - fy, wx0 = 1.0f - fx;
+  const int iy = y % t, ix = xx % t;
+  const float wy0 = wt[iy], fy = wt[t + iy];
+  const float wx0 = wt[ix], fx = wt[t + ix];
   long long sx = (long long)gc3 * C;         // one grid node along x
   long long sy = (long long)gx * sx;         // one grid node along y
   float* g = grid + ((b * gy + y / t) * gx + xx / t) * sx
@@ -55,16 +59,18 @@ __global__ void bilateral_splat_kernel(
   atomicAdd(g + sy + sx, __fmul_rn(__fmul_rn(fy, fx), v));
 }
 
-extern "C" int bilateral_splat(const void* x, const void* cell, void* grid,
-                               int B, int H, int W, int C, int t, int gy,
-                               int gx, int gc3, void* stream) {
+// wt: the [2, t] f32 weight table, w_0 then w_1 of each in-tile offset.
+extern "C" int bilateral_splat(const void* x, const void* cell,
+                               const void* wt, void* grid, int B, int H,
+                               int W, int C, int t, int gy, int gx, int gc3,
+                               void* stream) {
   long long n = (long long)B * H * W * C;
   if (n == 0) return 0;
   const int threads = 256;
   long long blocks = (n + threads - 1) / threads;
   bilateral_splat_kernel<<<(unsigned int)blocks, threads, 0,
                            (cudaStream_t)stream>>>(
-      (const float*)x, (const int*)cell, (float*)grid, B, H, W, C, t, gy,
-      gx, gc3);
+      (const float*)x, (const int*)cell, (const float*)wt, (float*)grid, B,
+      H, W, C, t, gy, gx, gc3);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 // ring_copy.cuh — asynchronous copies from device memory into a ring of
-// shared-memory slots, shared by bilateral_color_blur.cu and
-// flat_color_blur.cu.
+// shared-memory slots, shared by bilateral_color_blur.cu,
+// flat_color_blur.cu and cube_plane_blur.cuh (the v1 route's cube blurs).
 //
-// Both kernels stream a block's input through a ring: the slots the
+// The kernels stream a block's input through a ring: the slots the
 // current step reads, plus F steps in flight.  A step's copies are one
 // cp.async group; `ring_wait<F>` leaves the F newest groups in flight and
 // waits for the rest, and a __syncthreads after it makes every thread's

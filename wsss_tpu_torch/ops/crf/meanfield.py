@@ -34,6 +34,7 @@ reference does; each structure says where.
 from __future__ import annotations
 
 import functools
+import os
 from typing import Tuple
 
 import numpy as np
@@ -51,6 +52,13 @@ from wsss_tpu_torch.ops.filters import resize_bilinear
 MXU_DS_CELL = 8
 MXU_DS_MIN_SXY = 24
 MXU_CELL_MULT = 1.35
+
+# the reference's routing switches, read at import as it reads them
+# (wsss_tpu/ops/crf/meanfield.py:46, :73): WSSS_TPU_NO_MXU keeps every
+# config off the MXU-layout grid (``_mxu_ok``), WSSS_TPU_NO_SPATIAL_DS
+# runs the grid's bilateral message at full resolution
+_MXU_DISABLED = bool(os.environ.get('WSSS_TPU_NO_MXU'))
+_MXU_DS_DISABLED = bool(os.environ.get('WSSS_TPU_NO_SPATIAL_DS'))
 
 
 # the native permutohedral route (CPU tensors only) uses another
@@ -494,8 +502,9 @@ def _fine_color_native_ok(hw: Tuple[int, int], config) -> bool:
 
 def _mxu_ok(hw: Tuple[int, int], n_ch: int, config) -> bool:
     """Whether the config takes the grid path — the reference's TPU
-    routing: grid-routed and applicable with 8-aligned cells."""
-    if not config.bi_compat:
+    routing: grid-routed and applicable with 8-aligned cells, unless
+    WSSS_TPU_NO_MXU is set."""
+    if _MXU_DISABLED or not config.bi_compat:
         return False
     if not _routes_to_grid(hw, config.bi_sxy, config.bi_srgb):
         return False
@@ -528,7 +537,8 @@ def _mean_field_mxu(probs: torch.Tensor, imgs: torch.Tensor, *, g_sxy,
     logits0 = -U - torch.amax(-U, dim=-1, keepdim=True)
     Q = torch.softmax(logits0, dim=-1)
 
-    use_ds = bi_sxy >= MXU_DS_MIN_SXY and min(h, w) >= 2 * bi_sxy
+    use_ds = (not _MXU_DS_DISABLED and bi_sxy >= MXU_DS_MIN_SXY
+              and min(h, w) >= 2 * bi_sxy)
     if use_ds:
         f = bi_sxy / float(MXU_DS_CELL)
         hd, wd = max(int(round(h / f)), 8), max(int(round(w / f)), 8)
