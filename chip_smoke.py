@@ -17,11 +17,12 @@ Phases, in order; any failure exits non-zero and prints no result:
                C 1) and, as an extra, at batch 8 (C 21 and C 40); the
                v1 route's finest cube (gc 52, where the tile splat is
                held too); the cube blur on the aligned filter's grid
-               (device times beside the previous design's).  Error
-               against the stated tolerance (the v1 kernels, both colour
-               blurs and the
-               aligned slice: bit-equal, and the tile splat the same bits
-               on two runs), and times from CUDA events (the median of
+               and, on one-run inputs, the slice's and the fold's fixed
+               cost (device times beside the previous design's).  Error
+               against the stated tolerance (the two atomic splats, v2
+               and aligned: 1e-5 of the max; every other kernel
+               bit-equal, and the tile splat the same bits on two runs),
+               and times from CUDA events (the median of
                one call, and a call's share of a CUDA graph of 10 calls
                back to back: the device's time) beside the bound and a
                library call, timed both ways; the v2 route's colour blur
@@ -220,26 +221,46 @@ def hold_v2_kernels(torch, K, geo, x, label):
     got_l = K.bilateral_slice(g_sp, cell, t)
     torch.cuda.synchronize()
     errs = {}
-    # splat: atomics sum in a run-dependent order -> f32 rounding;
-    # blur and slice use the plain version's operation order with
-    # round-to-nearest intrinsics -> bit-equal expected, and the blur is
-    # held to it
-    check(torch.equal(got_b, ref_b),
-          f'bilateral_color_blur {label} is not bit-equal to plain')
-    for name, got, ref, tol in (
-            ('bilateral_splat', got_s, ref_s, 1e-5),
-            ('bilateral_color_blur', got_b, ref_b, 1e-6),
-            ('bilateral_slice', got_l, ref_l, 1e-6)):
-        check(got.shape == ref.shape and torch.isfinite(got).all(),
-              f'{name} {label}: shape {tuple(got.shape)} or non-finite')
-        err = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        print(f'[kernels] {name} {label}: max_abs_err {err:.3e} '
-              f'max_rel_err {err / scale:.3e} (tolerance {tol:g} of '
-              f'max |plain| {scale:.4g})')
-        check(err <= tol * scale, f'{name} {label} disagrees with plain')
-        errs[name] = err
+    # splat: atomics sum in a run-dependent order -> within 1e-5 of the
+    # max; blur and slice use the plain version's operation order with
+    # round-to-nearest intrinsics -> held bit-equal
+    check(got_s.shape == ref_s.shape and torch.isfinite(got_s).all(),
+          f'bilateral_splat {label}: shape {tuple(got_s.shape)} or '
+          'non-finite')
+    err = float((got_s - ref_s).abs().max())
+    scale = float(ref_s.abs().max())
+    print(f'[kernels] bilateral_splat {label}: max_abs_err {err:.3e} '
+          f'max_rel_err {err / scale:.3e} (tolerance 1e-05 of max |plain| '
+          f'{scale:.4g})')
+    check(err <= 1e-5 * scale, f'bilateral_splat {label} disagrees with '
+          'plain')
+    errs = {'bilateral_splat': err}
+    for name, got, ref in (('bilateral_color_blur', got_b, ref_b),
+                           ('bilateral_slice', got_l, ref_l)):
+        errs[name] = hold_bit_equal(torch, name, label, got, ref)
     return errs, ref_s, ref_b, g_sp, ref_l
+
+
+def slice_library(torch, K, cell, t, gy, gx, gc, g_sp):
+    """One torch.sparse.mm (CSR) that computes the slice: a [pixels,
+    grid rows] matrix of the 4 corner weights a pixel, times the grid
+    viewed as [rows, C]; returns (the call, the grid rows touched)."""
+    corner = K.corner_rows(cell, t, gy, gx, gc ** 3)
+    rows4 = torch.cat([r.reshape(-1) for r, _ in corner])
+    n_pix = cell.numel()
+    s_idx = torch.stack([
+        torch.arange(n_pix, device=cell.device).repeat(4), rows4])
+    s_val = torch.cat([w.expand(cell.shape).reshape(-1) for _, w in corner])
+    with warnings.catch_warnings():     # CSR support is 'beta'
+        warnings.simplefilter('ignore', UserWarning)
+        smat = torch.sparse_coo_tensor(
+            s_idx, s_val, (n_pix, g_sp.numel() // g_sp.shape[-1]),
+            check_invariants=False).coalesce().to_sparse_csr()
+    g_flat = g_sp.reshape(-1, g_sp.shape[-1])
+
+    def slice_lib():
+        return torch.sparse.mm(smat, g_flat)
+    return slice_lib, int(torch.unique(rows4).numel())
 
 
 def phase_kernels(torch):
@@ -316,24 +337,11 @@ def phase_kernels(torch):
             library_ms=cuda_ms(torch, blur_lib), bound_ms=bb, bound_by=bf,
             library_device_ms=burst_ms(torch, blur_lib, reps=3))
 
-        n_pix = cell.numel()
-        s_idx = torch.stack([
-            torch.arange(n_pix, device=dev).repeat(4), rows4])
-        s_val = torch.cat([w.expand(cell.shape).reshape(-1)
-                           for _, w in corner])
-        with warnings.catch_warnings():     # CSR support is 'beta'
-            warnings.simplefilter('ignore', UserWarning)
-            smat = torch.sparse_coo_tensor(
-                s_idx, s_val, (n_pix, BATCH * gy * gx * gc ** 3),
-                check_invariants=False).coalesce().to_sparse_csr()
-        g_flat = g_sp.reshape(-1, c)
-
-        def slice_lib():
-            return torch.sparse.mm(smat, g_flat)
+        slice_lib, touched = slice_library(torch, K, cell, t, gy, gx, gc,
+                                           g_sp)
         lib_err = float((slice_lib().view(ref_l.shape) - ref_l).abs().max())
         check(lib_err <= 1e-5 * float(ref_l.abs().max()),
               f'sparse.mm yardstick computes another function ({lib_err})')
-        touched = int(torch.unique(rows4).numel())
         bb, bf = bound_ms(touched * c * 4 + cell.numel() * 4
                           + ref_l.numel() * 4, 7 * ref_l.numel())
         results['bilateral_slice'].update(
@@ -382,6 +390,18 @@ def phase_kernels(torch):
             r = results[name]['cases'][f'sec_v2_c{c}'] = dict(
                 max_abs_err=errs[name], ms=cuda_ms(torch, fn),
                 device_ms=burst_ms(torch, fn), bound_ms=bb, bound_by=bf)
+            if name == 'bilateral_slice' and c == 21:
+                # the slice's yardstick at SEC's shape too: it launches
+                # the slice twice as often as the main path does
+                slice_lib, _ = slice_library(torch, K, cell, t, gy, gx, gc,
+                                             g_sp)
+                lib_err = float((slice_lib().view(ref_l.shape)
+                                 - ref_l).abs().max())
+                check(lib_err <= 1e-5 * float(ref_l.abs().max()),
+                      f'sparse.mm yardstick at SEC\'s shape computes '
+                      f'another function ({lib_err})')
+                r.update(library_ms=cuda_ms(torch, slice_lib),
+                         library_device_ms=burst_ms(torch, slice_lib))
             print(f'[kernels] {name} {label}: {r["ms"]:.4f} ms{bursts(r)}, '
                   f'bound {bb:.4f} ms ({bf})')
 
@@ -563,16 +583,17 @@ def hold_v1_kernels(torch, K, geo, x, label):
 # extra that no path of this script runs on the v1 route
 V1_CASES = (('sec', 21, 'sec'), ('wide', 40, 'wide'),
             ('hsn', 21, 'b8'), ('hsn', 40, 'b8'))
-# the two cube blurs' device times in their previous design (blocks of a
-# node and two channels: this script on an H100 80GB HBM3 at 700 W, a
-# graph of 10 calls), for the log; scripts/time_tile_kernels.py --tree
-# times two checkouts in one run
-PARENT_DEVICE_MS = {'bilateral_fold_blur/sec_c21': '0.1074-0.1090',
-                    'bilateral_fold_blur/sec_c1': '0.0153-0.0154',
-                    'bilateral_fold_blur/b8_c21': '1.1499-1.1522',
-                    'bilateral_cube_blur/wide_c40': '0.1526-0.1530',
-                    'bilateral_cube_blur/b8_c21': '0.6445-0.6460',
-                    'gc52': '0.34-0.35 a call'}
+# the slice's and the fold's device times in their previous design (a
+# thread an element: this script on an H100 80GB HBM3 at 700 W, a graph of
+# 10 calls), for the log; scripts/time_tile_kernels.py --tree times two
+# checkouts in one run
+PARENT_DEVICE_MS = {'bilateral_slice/hsn_c21': '0.0079-0.0081',
+                    'bilateral_slice/sec_v2_c21': '0.0025-0.0027',
+                    'bilateral_slice/sec_c21': '0.0025-0.0028',
+                    'bilateral_slice/wide_c40': '0.0028-0.0029',
+                    'bilateral_fold/sec_c21': '0.0411-0.0413',
+                    'bilateral_fold/wide_c40': '0.0741-0.0750',
+                    'bilateral_fold/b8_c21': '0.5427-0.5431'}
 # where each v1 kernel's headline numbers come from: the path that
 # launches it most, at the message filter's width
 V1_HEADLINE = {'bilateral_splat_tiles': 'sec_c21',
@@ -650,18 +671,42 @@ def phase_kernels_v1(torch, results):
     print(f'[kernels] bilateral_splat_tiles, bilateral_fold_blur and '
           f'bilateral_cube_blur gc=52 C=1 B=1 ({plan.slabs} cr slabs of '
           f'{plan.nl} planes a node): bit-equal; cube blur {ms:.4f} ms, on '
-          f'the device {dms:.4f} ms (the previous design '
-          f'{PARENT_DEVICE_MS["gc52"]}), '
-          f'bound {bb:.4f} ms')
+          f'the device {dms:.4f} ms, bound {bb:.4f} ms')
     results['bilateral_cube_blur']['gc52_ms'] = ms
     results['bilateral_cube_blur']['cases']['gc52_c1'] = dict(
         ms=ms, device_ms=dms, bound_ms=bb, bound_by='bytes')
-    for name in ('bilateral_fold_blur', 'bilateral_cube_blur'):
-        for case, r in results[name]['cases'].items():
+
+
+def fixed_costs(torch, results):
+    """The slice's and the fold's device time on a one-run input (the
+    slice: B 1, an 8x8 guide, t 8, gc 16, C 1; the fold: one 1x1-tile
+    partial, gc 16, C 1), each held bit-equal: how much of a kernel's time
+    is the launch itself.  Then each case's device time beside the
+    previous design's."""
+    from wsss_tpu_torch.kernels import bilateral as K
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(8)
+    grid = torch.rand((1, 2, 2, 16, 16, 16, 1), generator=gen, device=dev)
+    cell = torch.randint(0, 16 ** 3, (1, 8, 8), generator=gen, device=dev,
+                         dtype=torch.int32)
+    part = torch.rand((1, 1, 1, 4, 16, 16, 16, 1), generator=gen, device=dev)
+    for name, fn, plain in (
+            ('bilateral_slice', lambda: K.bilateral_slice(grid, cell, 8),
+             lambda: K.bilateral_slice_plain(grid, cell, 8)),
+            ('bilateral_fold', lambda: K.bilateral_fold(part),
+             lambda: K.bilateral_fold_plain(part))):
+        hold_bit_equal(torch, name, 'one-run input', fn(), plain())
+        r = results[name]
+        r['fixed_ms'] = burst_ms(torch, fn)
+        print(f'[kernels] {name} fixed cost (one-run input, on the device):'
+              f' {r["fixed_ms"]:.4f} ms')
+        cases = dict(r['cases'], **{r['shape']: r})
+        for case, c in cases.items():
             parent = PARENT_DEVICE_MS.get(f'{name}/{case}')
-            if 'device_ms' in r and parent:
-                print(f'[kernels] {name} {case}: {r["device_ms"]:.4f} ms on '
-                      f'the device; the previous design {parent}')
+            if 'device_ms' in c and parent:
+                print(f'[kernels] {name} {case}: {c["device_ms"]:.4f} ms on '
+                      f'the device (fixed cost {r["fixed_ms"]:.4f}, bound '
+                      f'{c["bound_ms"]:.4f}); the previous design {parent}')
 
 
 def phase_main(torch):
@@ -1395,6 +1440,7 @@ def main():
     phase_kernels_v1(torch, results)
     phase_kernels_scatter(torch, results)
     phase_kernels_aligned(torch, results)
+    fixed_costs(torch, results)
     print(f'[time] kernels done at {time.perf_counter() - t_start:.0f} s')
     paths = {'hsn': phase_main(torch)}
     print(f'[time] main path done at {time.perf_counter() - t_start:.0f} s')
@@ -1444,8 +1490,8 @@ def main():
                 'runs the split form'}
                if name == 'flat_color_blur_split' else {}),
             **{k: r[k] for k in ('shape', 'cases', 'device_ms',
-                                 'library_device_ms', 'color_blur_ms',
-                                 'gc52_ms') if k in r}))
+                                 'library_device_ms', 'fixed_ms',
+                                 'color_blur_ms', 'gc52_ms') if k in r}))
     print('kernels launched on the paths: '
           + ', '.join(k['name'] for k in kernels))
     print(f'[result] card: {smi}')

@@ -218,6 +218,86 @@ def test_splat_tiles_writes_every_element_on_card(cuda_device, c):
                                                            g.gc))
 
 
+# (B, H, W, t, gc, C): widths 33 and 97, a last run of fewer than 32
+# pixels, C 1 / 21 / 64, t 8 / 16 / 48
+SLICE_CARD_CASES = [(2, 60, 33, 8, 16, 21), (1, 41, 97, 16, 16, 64),
+                    (3, 5, 9, 8, 16, 1), (1, 100, 97, 48, 16, 21),
+                    (2, 13, 33, 8, 4, 1), (1, 70, 52, 48, 8, 64),
+                    (2, 64, 64, 8, 16, 21)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cut', ['elements', 'runs'])
+@pytest.mark.parametrize('b,h,w,t,gc,c', SLICE_CARD_CASES)
+def test_slice_matches_plain_on_card(cuda_device, monkeypatch, cut, b, h, w,
+                                     t, gc, c):
+    """Both cuts of the slice, each forced by its threshold (a thread an
+    element; a warp a run of flat pixels across rows and images):
+    bit-equal to the plain version, one launch a call, and every output
+    element written: the output comes back from the caching allocator as
+    a freed block of NaNs and keeps none."""
+    monkeypatch.setattr(K, '_SLICE_ELEMENT_MAX',
+                        2 ** 31 if cut == 'elements' else 0)
+    assert (K.slice_run(c, b * h * w) == 0) == (cut == 'elements')
+    gen = torch.Generator(device=cuda_device).manual_seed(h * w + c)
+    gy, gx = -(-h // t) + 1, -(-w // t) + 1
+    grid = torch.randn((b, gy, gx, gc, gc, gc, c), generator=gen,
+                       device=cuda_device)
+    cell = torch.randint(0, gc ** 3, (b, h, w), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    want = K.bilateral_slice_plain(grid, cell, t)
+    K._tile_weights(t, cuda_device)                 # cached before the poison
+    poison = torch.full((b, h, w, c), float('nan'), device=cuda_device)
+    ptr = poison.data_ptr()
+    del poison
+    before = K.LAUNCHES['bilateral_slice']
+    got = K.bilateral_slice(grid, cell, t)
+    assert K.LAUNCHES['bilateral_slice'] == before + 1
+    assert got.data_ptr() == ptr and got.shape == want.shape
+    assert not torch.isnan(got).any()
+    assert torch.equal(got, want)
+
+
+# partials [B, nty, ntx, 4, gc, gc, gc, C]: an odd cube (4-byte words),
+# 1x1 tiles (every node an edge node), C 1, SEC prediction's 5x7 tiles
+FOLD_CARD_CASES = [(1, 2, 3, 17, 33), (2, 1, 1, 16, 21), (1, 5, 7, 16, 1),
+                   (1, 5, 7, 16, 21), (2, 4, 4, 16, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,nty,ntx,gc,c', FOLD_CARD_CASES)
+def test_fold_matches_plain_on_card(cuda_device, b, nty, ntx, gc, c):
+    """The fold's (node, span) units on seeded partials: bit-equal to the
+    plain version, one launch a call, every grid element written (the
+    grid comes back from the caching allocator NaN-poisoned)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(gc * c + nty)
+    part = torch.randn((b, nty, ntx, 4, gc, gc, gc, c), generator=gen,
+                       device=cuda_device)
+    want = K.bilateral_fold_plain(part)
+    shape = (b, nty + 1, ntx + 1, gc, gc, gc, c)
+    poison = torch.full(shape, float('nan'), device=cuda_device)
+    ptr = poison.data_ptr()
+    del poison
+    before = K.LAUNCHES['bilateral_fold']
+    got = K.bilateral_fold(part)
+    assert K.LAUNCHES['bilateral_fold'] == before + 1
+    assert got.data_ptr() == ptr and got.shape == want.shape
+    assert not torch.isnan(got).any()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_slice_raises_past_its_widest_c_on_card(cuda_device):
+    c = K._SLICE_MAX_C + 1
+    grid = torch.zeros((1, 2, 2, 1, 1, 1, c), device=cuda_device)
+    cell = torch.zeros((1, 8, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match='C <= 8192'):
+        K.bilateral_slice(grid, cell, 8)
+    grid = torch.ones((1, 2, 2, 1, 1, 1, c - 1), device=cuda_device)
+    assert torch.equal(K.bilateral_slice(grid, cell, 8),
+                       torch.ones((1, 8, 8, c - 1), device=cuda_device))
+
+
 @pytest.mark.cuda
 def test_cube_blur_cuts_a_large_cube_on_card(cuda_device):
     """gc 52 (srgb 5): a cg row is past the register row phase's 24

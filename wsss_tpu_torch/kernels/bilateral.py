@@ -148,6 +148,10 @@ def _even_blocks(units: int, blocks_per_sm: int, device: torch.device
     return -(-units // per)
 
 
+# an H100's SMs, for the planners' cost models
+_SMS = 132
+
+
 def _pixel_geometry(h: int, w: int, t: int, device):
     """Per-row / per-column tile index and the two bilinear weights."""
     ys = torch.arange(h, device=device)
@@ -426,9 +430,39 @@ def bilateral_slice_plain(grid: torch.Tensor, cell: torch.Tensor, t: int
     return out
 
 
+# the slice indexes pixels, grid rows and elements in 32 bits; its widest
+# C, as far as the tests hold its divisions (the routes give C <= 512)
+_SLICE_MAX_C = 8192
+# its persistent blocks: 256 threads at most 64 registers, 1024 threads an
+# SM; a thread an element up to as many elements as 132 SMs hold threads,
+# else a warp a run of pixels, 8 elements a lane a round
+_SLICE_THREADS = 256
+_SLICE_BLOCKS_PER_SM = 1024 // _SLICE_THREADS
+_SLICE_ELEMENT_MAX = _SMS * 1024
+_SLICE_ROUND = 32 * 8
+
+
+def slice_run(c: int, pixels: int) -> int:
+    """How ``bilateral_slice`` cuts `pixels` pixels of C channels: 0 for a
+    thread an element, where there are no more elements than the card
+    holds threads at once (the shortest chain of dependent work a thread);
+    else the pixels of a warp's run, as many as one round of 8 elements a
+    lane covers (L*C <= 256), at most 32 and at least 1, so that each
+    pixel's coordinates serve C elements.  ValueError past the kernel's
+    C."""
+    if not 1 <= c <= _SLICE_MAX_C or pixels < 1:
+        raise ValueError(f'bilateral_slice takes C in 1..{_SLICE_MAX_C} and '
+                         f'pixels >= 1, got C={c}, pixels={pixels}')
+    if pixels * c <= _SLICE_ELEMENT_MAX:
+        return 0
+    return max(1, min(32, _SLICE_ROUND // c))
+
+
 def bilateral_slice(grid: torch.Tensor, cell: torch.Tensor, t: int
                     ) -> torch.Tensor:
-    """grid [B,gy,gx,gc,gc,gc,C] f32, cell [B,H,W] int32 -> [B,H,W,C]."""
+    """grid [B,gy,gx,gc,gc,gc,C] f32, cell [B,H,W] int32 -> [B,H,W,C] (one
+    launch, a thread an element or a warp a run of flat pixels as
+    ``slice_run`` cuts them; bit-equal to the plain version)."""
     if not _use_kernel(grid, cell):
         return bilateral_slice_plain(grid, cell, t)
     _check(grid, 'grid', torch.float32, 7)
@@ -439,12 +473,23 @@ def bilateral_slice(grid: torch.Tensor, cell: torch.Tensor, t: int
     if cell.shape[0] != b or gy != -(-h // t) + 1 or gx != -(-w // t) + 1:
         raise ValueError(f'cell {tuple(cell.shape)} does not fit grid '
                          f'{tuple(grid.shape)} at t={t}')
+    if (cell.numel() >= 2 ** 31 or grid.numel() // max(c, 1) >= 2 ** 31
+            or c > _SLICE_MAX_C):
+        raise ValueError(f'bilateral_slice takes under 2^31 pixels and grid '
+                         f'rows and C <= {_SLICE_MAX_C}, got grid '
+                         f'{tuple(grid.shape)}, cell {tuple(cell.shape)}')
+    run = slice_run(c, cell.numel())
     out = torch.empty((b, h, w, c), dtype=torch.float32, device=grid.device)
+    # threads for the elements, or warps for the runs
+    units = (cell.numel() * c if run == 0
+             else -(-cell.numel() // run) * 32)
+    blocks = _blocks(-(-units // _SLICE_THREADS), _SLICE_BLOCKS_PER_SM,
+                     grid.device)
     fn = _build.entry('bilateral_slice',
-                      (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P))
+                      (_P, _P, _P, _P) + (_I,) * 10 + (_P,))
     rc = fn(grid.data_ptr(), cell.data_ptr(),
             _tile_weights(t, grid.device).data_ptr(), out.data_ptr(), b, h,
-            w, c, t, gy, gx, gc ** 3, _stream())
+            w, c, t, gy, gx, gc ** 3, run, blocks, _stream())
     LAUNCHES['bilateral_slice'] += 1
     _raise_on(rc, 'bilateral_slice')
     return out
@@ -651,18 +696,102 @@ def bilateral_fold_plain(part: torch.Tensor, ref_round: bool = False
     return bf16_round(grid) if ref_round else grid
 
 
+# the fold's persistent blocks: 256 threads, at most 64 registers, 4 an
+# SM; a thread loads 2 float4s (or 8 floats) from every source a step
+_FOLD_THREADS = 256
+_FOLD_BLOCKS_PER_SM = 4
+_FOLD_WORDS = 2
+# a unit's fixed cost (its first loads' round trip), in steps
+_FOLD_UNIT_COST = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class FoldPlan:
+    """How ``bilateral_fold`` cuts the grid of `nodes` nodes of gc^3 C
+    floats each.
+
+    A unit of work is a node and a span of `span` floats of its cube
+    (`spans` of them a node, the last ragged; ``cut()``); units are
+    numbered node by node.  `vec` 4: the cube is a multiple of 4 floats,
+    so every cube starts 16-byte aligned and a thread moves float4s;
+    `vec` 1: 4-byte words.  A step is `step` floats: every thread's words
+    of one round of loads."""
+    gc: int
+    c: int
+    nodes: int
+    vec: int
+    span: int
+    spans: int
+
+    @property
+    def cube(self) -> int:
+        return self.gc ** 3 * self.c
+
+    @property
+    def step(self) -> int:
+        return _FOLD_THREADS * _FOLD_WORDS * 4
+
+    @property
+    def units(self) -> int:
+        return self.nodes * self.spans
+
+    def cut(self) -> List[Tuple[int, int]]:
+        """(first float, floats) of each span of a node's cube, in order."""
+        return [(e0, min(self.span, self.cube - e0))
+                for e0 in range(0, self.cube, self.span)]
+
+
+@functools.lru_cache(maxsize=None)
+def fold_plan(gc: int, c: int, nodes: int) -> FoldPlan:
+    """The geometry of ``bilateral_fold`` for `nodes` nodes of gc^3 C
+    floats: 16-byte words where the cube is a multiple of 4 floats, else
+    4-byte words; then the number of spans a cube is cut into (of whole
+    steps) that finishes soonest on 132 SMs of 4 blocks each: a block's
+    units in turn, each its steps and a fixed cost of one step (the fewer
+    spans on a tie).  ValueError where a cube or the units do not fit the
+    kernel's 32-bit indices."""
+    if gc < 1 or c < 1 or nodes < 1:
+        raise ValueError(f'bilateral_fold takes gc >= 1, C >= 1 and nodes '
+                         f'>= 1, got gc={gc}, C={c}, nodes={nodes}')
+    cube = gc ** 3 * c
+    step = _FOLD_THREADS * _FOLD_WORDS * 4
+    if 2 * cube + step >= 2 ** 31:               # a span's end, in int
+        raise ValueError(f'bilateral_fold: no plan fits gc={gc}, C={c}: a '
+                         f'cube of {cube} floats is past the kernel\'s '
+                         f'32-bit indices')
+    vec = 4 if cube % 4 == 0 else 1
+    steps = -(-cube // step)                      # steps of a whole cube
+    slots = _SMS * _FOLD_BLOCKS_PER_SM
+
+    def cost(n):
+        span = -(-steps // n) * step
+        spans = -(-cube // span)
+        return (-(-nodes * spans // slots) * (span // step + _FOLD_UNIT_COST),
+                spans, span)
+    _, spans, span = min(cost(n) for n in range(1, steps + 1))
+    if nodes * spans >= 2 ** 31:
+        raise ValueError(f'bilateral_fold: no plan fits gc={gc}, C={c}, '
+                         f'nodes={nodes}: {nodes * spans} units are past the '
+                         f'kernel\'s 32-bit indices')
+    return FoldPlan(gc, c, nodes, vec, span, spans)
+
+
 def bilateral_fold(part: torch.Tensor) -> torch.Tensor:
     """partials [B,nty,ntx,4,gc,gc,gc,C] f32 -> grid
-    [B,nty+1,ntx+1,gc,gc,gc,C], no blur (bit-equal to the plain
-    version)."""
+    [B,nty+1,ntx+1,gc,gc,gc,C], no blur (one launch of persistent blocks
+    over (node, span) units; bit-equal to the plain version)."""
     if not _use_kernel(part):
         return bilateral_fold_plain(part)
     b, nty, ntx, gc, c = _check_partials(part)
+    nodes = b * (nty + 1) * (ntx + 1)
+    plan = fold_plan(gc, c, nodes)
     grid = torch.empty((b, nty + 1, ntx + 1, gc, gc, gc, c),
                        dtype=torch.float32, device=part.device)
-    fn = _build.entry('bilateral_fold', (_P, _P, _LL, _I, _I, _LL, _P))
-    rc = fn(part.data_ptr(), grid.data_ptr(), grid.numel(), nty + 1,
-            ntx + 1, gc ** 3 * c, _stream())
+    blocks = _even_blocks(plan.units, _FOLD_BLOCKS_PER_SM, part.device)
+    fn = _build.entry('bilateral_fold', (_P, _P) + (_I,) * 9 + (_P,))
+    rc = fn(part.data_ptr(), grid.data_ptr(), nty + 1, ntx + 1, plan.cube,
+            plan.vec, plan.span, plan.spans, plan.units, blocks,
+            -(-plan.units // blocks), _stream())
     LAUNCHES['bilateral_fold'] += 1
     _raise_on(rc, 'bilateral_fold')
     return grid
@@ -678,11 +807,10 @@ _CUBE_BLUR_REG_ROWS = 256
 # channels of a group where whole planes of all C do not fit: 8 floats are
 # one 32-byte sector, small enough for two blocks an SM
 _CUBE_BLUR_GROUP = 8
-# for the choice of slabs: an H100's SMs; a unit's fixed cost (its first
-# planes' round trip, the steps' barriers) in plane steps; the bytes an SM
-# moves in one plane step's time (~25 GB/s, an SM's share of the memory
-# rate, over ~1 us a step)
-_SMS = 132
+# for the choice of slabs: a unit's fixed cost (its first planes' round
+# trip, the steps' barriers) in plane steps; the bytes an SM moves in one
+# plane step's time (~25 GB/s, an SM's share of the memory rate, over ~1 us
+# a step)
 _CUBE_BLUR_UNIT_COST = 4
 _CUBE_BLUR_STEP_BYTES = 25600
 
