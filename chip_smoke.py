@@ -39,6 +39,22 @@ Phases, in order; any failure exits non-zero and prints no result:
                launch counts of the timed run (the v2 route's three must
                be > 0, the colour blur once a filter), label agreement
                with the same batch through the plain versions;
+     cues    — Grad-CAM cue generation (the 02_cues stage):
+               VOCDeepGlobeCueGenerator.run with full-width VGG16 fg + bg
+               over 16 synthetic VOC images at 321^2 in batches of 8
+               (img/s, CAM-to-cues ms a batch, cue pixels per class; no
+               hand kernel may launch) and ADPCueGenerator('X1.7') at
+               224^2; one batch of 2 on the card against the CPU (labels
+               equal, cues agree on >= 0.999 of the seed pixels); both
+               generators again with WSSS_TPU_BF16_INFER=1 handles (img/s,
+               agreement with float32);
+     precision — the main path with bf16 classifiers, with the bf16 CRF
+               state (meanfield._CRF_STATE_BF16), and with both: img/s,
+               CAM and CRF ms, launches (the main path's), label
+               agreement with the float32 run on the same batch, and the
+               CRF posterior Q against the float32 one on the same CAM
+               batch (max and mean |dQ|, argmax agreement); each mode
+               fails outside PRECISION_BOUNDS;
   5. sec     — predict_image (SEC, full-width DeepLab-LargeFOV, random
                weights) on 4 VOC-sized images at 321: img/s, FCN and CRF
                ms and launch counts on the default (v2) route, then on
@@ -776,6 +792,261 @@ def phase_main(torch):
     return launches
 
 
+def bf16_handles(gc, model_type, n, size, seeds):
+    """Handles built as WSSS_TPU_BF16_INFER=1 builds them (read at the
+    build by infer_dtype), with the f32 handles' seeds."""
+    import os
+    import torch
+    os.environ['WSSS_TPU_BF16_INFER'] = '1'
+    try:
+        hs = [gc._ClassifierHandle.random(model_type, n, size, seed=s)
+              for s in seeds]
+    finally:
+        del os.environ['WSSS_TPU_BF16_INFER']
+    check(all(h.model.dtype == torch.bfloat16 for h in hs),
+          'WSSS_TPU_BF16_INFER did not build bf16 classifiers')
+    return hs
+
+
+def cue_agreement(a, b, n_classes, indices):
+    """(fraction of images with equal '_labels', lowest per-image share of
+    the 41x41 seed pixels whose one-hot cue vectors are equal)."""
+    from wsss_tpu_torch.io import artifacts
+    labels, worst = 0, 1.0
+    for i in indices:
+        labels += int(np.array_equal(a[f'{i}_labels'], b[f'{i}_labels']))
+        da = artifacts.unpack_cues(a, int(i), (41, 41, n_classes))
+        db = artifacts.unpack_cues(b, int(i), (41, 41, n_classes))
+        worst = min(worst, float(np.all(da == db, axis=-1).mean()))
+    return labels / len(indices), worst
+
+
+def timed_run(torch, gen, batches):
+    """(pickle dicts, img/s): gen.run over host batches, host clock ending
+    in a synchronize, after a warm-up batch."""
+    from wsss_tpu_torch.kernels import bilateral as K
+    gen.run(batches[:1])
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = gen.run(batches)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = sum(len(b.indices) for b in batches)
+    return out, n / dt, dict(K.LAUNCHES)
+
+
+def phase_cues(torch):
+    """Grad-CAM cue generation (the 02_cues stage) at full width: VOC2012
+    VGG16 fg + bg at 321^2 and ADP X1.7 at 224^2, f32 and bf16, and one
+    VOC batch of 2 on the card against the CPU."""
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.data.pipeline import SyntheticWSSS
+    from wsss_tpu_torch.methods import gradcam_cues as gc
+    spec = registry.get('VOC2012')
+    n_fg, n_seg = spec.n_fg_classes, spec.n_seg_classes
+    n_img = 16
+    batches = list(SyntheticWSSS('VOC2012', size=SIZE,
+                                 n_images=n_img).batches(BATCH))
+    t0 = time.perf_counter()
+    fg, bg = (gc._ClassifierHandle.random('VGG16', n_fg, SIZE, seed=s)
+              for s in (0, 1))
+    gen = gc.VOCDeepGlobeCueGenerator(spec, fg, bg)
+    torch.cuda.synchronize()
+    print(f'[cues] VGG16 fg + bg handles built in '
+          f'{time.perf_counter() - t0:.2f} s')
+    out, ips, voc_launches = timed_run(torch, gen, batches)
+    print(f'[cues] VOC2012 VGG16 fg + bg, {n_img} images at {SIZE}^2 in '
+          f'batches of {BATCH}: {ips:.2f} img/s; launches {voc_launches}')
+    check_launches(voc_launches, (), 'the cues path (no hand kernel: cue '
+                   'generation is plain PyTorch, as in the reference)')
+    check(set(out) == {f'{i}_{k}' for i in range(n_img)
+                       for k in ('labels', 'cues')}, 'cue pickle keys')
+    per_class = np.zeros(n_seg, np.int64)
+    for i in range(n_img):
+        sp = out[f'{i}_cues']
+        check(sp.ndim == 2 and sp.shape[0] == 3 and
+              (sp.size == 0 or (sp[0].max() < n_seg and sp[1:].max() < 41)),
+              f'cues of image {i} out of the seed grid')
+        check(np.all(out[f'{i}_labels'] >= 1), 'VOC labels must be >= 1')
+        per_class += np.bincount(sp[0], minlength=n_seg)
+    print(f'[cues] cue pixels per class over the {n_img} images: '
+          f'{per_class.tolist()}')
+    b0 = batches[0]
+    x = torch.as_tensor(b0.images, device='cuda')
+    tags = torch.as_tensor(b0.tags, device='cuda')
+    cam_ms = cuda_ms(torch, lambda: gen.generate_batch(x, tags), reps=5,
+                     warmup=1)
+    print(f'[cues] CAM-to-cues ms per batch of {BATCH} (generate_batch, both '
+          f'nets): {cam_ms:.2f}')
+
+    # card against CPU on one batch of 2 (same seeds, float32, TF32 off).
+    # Random weights put every score near 0.5: at the 0.5 default a pass
+    # flag (of either net: the bg net's masks its CAMs too) could flip on
+    # the two devices' float noise, so both sides take per class the
+    # middle of the widest gap between 0, 1 and the card's two scores
+    # (each score at least 1/6 from it; both branches taken)
+    sub = [first_images(b0, 2)]
+    ths, margin_05, n_pass = [], 1.0, 0
+    for h in (fg, bg):
+        with torch.no_grad():
+            scores = h.model(gen._norm(x[:2]))[0].cpu().numpy()
+        ths.append(separating_thresholds(scores))
+        h.thresholds = torch.as_tensor(ths[-1], device='cuda')
+        margin_05 = min(margin_05, float(np.abs(scores - 0.5).min()))
+        n_pass += int((scores >= ths[-1]).sum())
+    on_card = gen.run(sub)
+    cpu_h = [gc._ClassifierHandle.random('VGG16', n_fg, SIZE, seed=s,
+                                         thresholds=th, device='cpu')
+             for s, th in zip((0, 1), ths)]
+    on_cpu = gc.VOCDeepGlobeCueGenerator(spec, *cpu_h, device='cpu').run(sub)
+    lab, agree = cue_agreement(on_card, on_cpu, n_seg, range(2))
+    print(f'[cues] card vs CPU, one batch of 2: labels equal on {lab:.3f} '
+          f'of the images, cue agreement {agree:.6f} of the seed pixels '
+          f'(tolerance 0.999; passing scores {n_pass} of {2 * 2 * n_fg}; '
+          f'nearest score to 0.5 {margin_05:.3e})')
+    check(lab == 1.0, 'cue labels differ between the card and the CPU')
+    check(agree >= 0.999, f'card vs CPU cue agreement {agree} < 0.999')
+
+    adp_batches = list(SyntheticWSSS('ADP-morph', size=224,
+                                     n_images=n_img).batches(BATCH))
+    adp = gc.ADPCueGenerator(
+        gc._ClassifierHandle.random('X1.7', 51, 224, seed=2), 'X1.7')
+    (adp_m, adp_f), adp_ips, launches = timed_run(torch, adp, adp_batches)
+    print(f'[cues] ADP X1.7, {n_img} images at 224^2 in batches of {BATCH}: '
+          f'{adp_ips:.2f} img/s; launches {launches}')
+    check_launches(launches, (), 'the ADP cues path')
+    check(all(1 in adp_f[f'{i}_labels'] for i in range(n_img)),
+          "ADP func labels must hold 'Other'")
+
+    fg16, bg16 = bf16_handles(gc, 'VGG16', n_fg, SIZE, (0, 1))
+    out16, ips16, launches = timed_run(
+        torch, gc.VOCDeepGlobeCueGenerator(spec, fg16, bg16), batches)
+    check_launches(launches, (), 'the bf16 cues path')
+    lab, agree = cue_agreement(out16, out, n_seg, range(n_img))
+    print(f'[cues] bf16 classifiers (WSSS_TPU_BF16_INFER=1): VOC '
+          f'{ips16:.2f} img/s against f32 {ips:.2f}; labels equal on '
+          f'{lab:.3f} of the images, lowest cue agreement with f32 '
+          f'{agree:.6f}')
+    (adp16_m, adp16_f), adp16_ips, _ = timed_run(torch, gc.ADPCueGenerator(
+        bf16_handles(gc, 'X1.7', 51, 224, (2,))[0], 'X1.7'), adp_batches)
+    lab_m, agree_m = cue_agreement(adp16_m, adp_m, 29, range(n_img))
+    lab_f, agree_f = cue_agreement(adp16_f, adp_f, 5, range(n_img))
+    print(f'[cues] bf16 ADP X1.7: {adp16_ips:.2f} img/s against f32 '
+          f'{adp_ips:.2f}; labels equal on {lab_m:.3f} (morph) / '
+          f'{lab_f:.3f} (func) of the images, lowest cue agreement with '
+          f'f32 {agree_m:.6f} / {agree_f:.6f}')
+    return {'cues': voc_launches}
+
+
+def separating_thresholds(scores):
+    """Per class, the middle of the widest gap between 0, 1 and the
+    class's scores [B, C]."""
+    th = []
+    for col in scores.T:
+        v = np.sort(np.concatenate([[0.0, 1.0], col]))
+        k = int(np.argmax(np.diff(v)))
+        th.append((v[k] + v[k + 1]) / 2)
+    return np.asarray(th, np.float32)
+
+
+def first_images(batch, n):
+    """The first n images of a host batch."""
+    import dataclasses
+    return dataclasses.replace(
+        batch, indices=batch.indices[:n], names=batch.names[:n],
+        images=batch.images[:n], tags=batch.tags[:n],
+        gt=None if batch.gt is None else batch.gt[:n])
+
+
+# per bf16 mode: (least label and posterior-argmax agreement with the
+# float32 run, largest mean |dQ| of the CRF posterior), about 3x the
+# disagreement and the mean |dQ| read on an H100 80GB HBM3 at 700 W:
+# 0.995832 / 4.35e-4 (classifiers), 0.999794 / 2.65e-5 (CRF state),
+# 0.995936 / 4.35e-4 (both).  A loop that drops a message moves mean
+# |dQ| far past rounding.  max |dQ| is printed, not bounded: near-tied
+# pixels that flip label give it ~1 under rounding alone.
+PRECISION_BOUNDS = {'bf16_classifiers': (0.987, 1.3e-3),
+                    'bf16_crf_state': (0.9994, 8e-5),
+                    'bf16_both': (0.987, 1.3e-3)}
+
+
+def phase_precision(torch, main_launches):
+    """The main path in the reference's two bf16 opt-ins and both: bf16
+    classifiers (WSSS_TPU_BF16_INFER), the bf16 CRF state
+    (meanfield._CRF_STATE_BF16, which the reference's bench flips the same
+    way), against the float32 run on the same batch."""
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.methods import gradcam_cues as gc
+    from wsss_tpu_torch.methods.hsn import HSNSegmenter
+    from wsss_tpu_torch.ops.crf import meanfield as mf
+    spec = registry.get('VOC2012')
+    n_fg = spec.n_fg_classes
+    f32 = [gc._ClassifierHandle.random('VGG16', n_fg, SIZE, seed=s)
+           for s in (0, 1)]
+    b16 = bf16_handles(gc, 'VGG16', n_fg, SIZE, (0, 1))
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    batches = [torch.randint(0, 256, (BATCH, SIZE, SIZE, 3),
+                             dtype=torch.uint8, generator=gen,
+                             device='cuda') for _ in range(2)]
+    seg32 = HSNSegmenter(spec, *f32, model_type='VGG16')
+    want = seg32.segment_batch(batches[0])
+    check(mf._CRF_STATE_BF16 is False, 'the bf16 CRF state is on by default')
+    imgs = batches[0].to(torch.float32)
+    probs32 = seg32.probs(imgs)
+    q32 = mf.mean_field(probs32, imgs, seg32.cfg)
+    paths = {}
+    for mode, handles, state in (('bf16_classifiers', b16, False),
+                                 ('bf16_crf_state', f32, True),
+                                 ('bf16_both', b16, True)):
+        seg = HSNSegmenter(spec, *handles, model_type='VGG16')
+        mf._CRF_STATE_BF16 = state
+        try:
+            seg.segment_batch(batches[0])                 # warm-up
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            labels = [seg.segment_batch(b) for b in batches]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+            cam_ms = cuda_ms(torch, lambda: seg.probs(imgs), reps=5,
+                             warmup=1)
+            probs = seg.probs(imgs)
+            crf_ms = cuda_ms(torch, lambda: mf.mean_field(probs, imgs,
+                                                          seg.cfg),
+                             reps=5, warmup=1)
+            q = mf.mean_field(probs, imgs, seg.cfg)
+        finally:
+            mf._CRF_STATE_BF16 = False
+        check_launches(launches, V2_KERNELS, f'the {mode} main path')
+        check(launches == main_launches,
+              f'{mode} launches {launches} differ from the main path\'s '
+              f'{main_launches}')
+        agree = float((labels[0] == want).float().mean())
+        dq = (q - q32).abs()
+        dq_max, dq_mean = float(dq.max()), float(dq.mean())
+        q_agree = float((q.argmax(-1) == q32.argmax(-1)).float().mean())
+        min_agree, max_dq = PRECISION_BOUNDS[mode]
+        print(f'[precision] {mode}: {2 * BATCH / dt:.2f} img/s '
+              f'({1e3 * dt / 2:.2f} ms/batch), CAM {cam_ms:.2f} ms, CRF '
+              f'{crf_ms:.2f} ms per batch of {BATCH}; label agreement with '
+              f'the f32 run on the same batch {agree:.6f} (fails below '
+              f'{min_agree}); the CRF posterior against the f32 one: '
+              f'max |dQ| {dq_max:.4e}, mean |dQ| {dq_mean:.4e} (fails '
+              f'above {max_dq:.1e} or at 0), argmax agreement '
+              f'{q_agree:.6f}; launches {launches}')
+        check(labels[0].shape == want.shape and agree >= min_agree,
+              f'{mode} labels agree {agree} < {min_agree} with f32')
+        check(q.shape == q32.shape and 0 < dq_mean <= max_dq
+              and q_agree >= min_agree,
+              f'{mode} posterior: mean |dQ| {dq_mean} (0 < . <= {max_dq}), '
+              f'argmax agreement {q_agree} (>= {min_agree}) with f32')
+        paths[f'precision_{mode}'] = launches
+    return paths
+
+
 def phase_sec(torch):
     """SEC prediction at full width on both routes of the grid."""
     from wsss_tpu_torch.cli.sec_dsrg import predict_crf_config, predict_image
@@ -1444,6 +1715,10 @@ def main():
     print(f'[time] kernels done at {time.perf_counter() - t_start:.0f} s')
     paths = {'hsn': phase_main(torch)}
     print(f'[time] main path done at {time.perf_counter() - t_start:.0f} s')
+    paths.update(phase_cues(torch))
+    print(f'[time] cues done at {time.perf_counter() - t_start:.0f} s')
+    paths.update(phase_precision(torch, paths['hsn']))
+    print(f'[time] precision done at {time.perf_counter() - t_start:.0f} s')
     paths.update(phase_sec(torch))
     paths.update(phase_wide(torch))
     paths.update(phase_irn_label(torch))

@@ -13,7 +13,11 @@ predict_image.  Then chip_smoke.py's irn_label path (crf_label_refine
 with IRNet's label CRF on the scatter grid, one 321^2 image, and one
 C 21 filter of that grid alone) and its adp_hsn path (ADPHSNSegmenter,
 X1.7, batch 8 at 224^2: the whole segment_batch and the morph CRF on
-the direct window, one call each).  Prints per stage: host wall ms per
+the direct window, one call each).  Then cue generation (chip_smoke.py's
+cues path: VOCDeepGlobeCueGenerator, VGG16 fg + bg, batch 8 at 321^2:
+generate_batch on card tensors and run on one host batch) and the main
+path's two stages under the bf16 opt-ins (bf16 classifiers, bf16 CRF
+state).  ``--only`` picks sections.  Prints per stage: host wall ms per
 call, device kernel ms per call, the device's idle share of the window, the device time by
 kernel group and the top kernels.  The idle share is 1 - (union of the
 kernels' intervals) / window, since summed kernel time can exceed the
@@ -194,8 +198,60 @@ def profile_adp(torch, gen):
     return out
 
 
+def profile_cues(torch, gen):
+    """Cue generation (f32), and the main path's CAM and CRF stages under
+    the bf16 opt-ins, batch 8 at 321^2."""
+    import os
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.data.pipeline import SyntheticWSSS
+    from wsss_tpu_torch.methods import gradcam_cues as gc
+    from wsss_tpu_torch.methods.hsn import HSNSegmenter
+    from wsss_tpu_torch.ops.crf import meanfield as mf
+    spec = registry.get('VOC2012')
+    n = spec.n_fg_classes
+    handles = [gc._ClassifierHandle.random('VGG16', n, SIZE, seed=s)
+               for s in (0, 1)]
+    cue_gen = gc.VOCDeepGlobeCueGenerator(spec, *handles)
+    batch = next(SyntheticWSSS('VOC2012', size=SIZE,
+                               n_images=BATCH).batches(BATCH))
+    x = torch.as_tensor(batch.images, device='cuda')
+    tags = torch.as_tensor(batch.tags, device='cuda')
+    os.environ['WSSS_TPU_BF16_INFER'] = '1'
+    try:
+        b16 = [gc._ClassifierHandle.random('VGG16', n, SIZE, seed=s)
+               for s in (0, 1)]
+    finally:
+        del os.environ['WSSS_TPU_BF16_INFER']
+    seg16 = HSNSegmenter(spec, *b16, model_type='VGG16')
+    raw = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), dtype=torch.uint8,
+                        generator=gen, device='cuda')
+    imgs = raw.to(torch.float32)
+    probs = HSNSegmenter(spec, *handles, model_type='VGG16').probs(imgs)
+
+    def crf_bf16_state():
+        mf._CRF_STATE_BF16 = True
+        try:
+            return mf.mean_field(probs, imgs, seg16.cfg)
+        finally:
+            mf._CRF_STATE_BF16 = False
+    return profile_stages(torch, (
+        ('cues_generate_batch', lambda: cue_gen.generate_batch(x, tags),
+         ITERS),
+        ('cues_run', lambda: cue_gen.run([batch]), ITERS),
+        ('cam_bf16', lambda: seg16.probs(imgs), ITERS),
+        ('crf_bf16_state', crf_bf16_state, ITERS)), {})
+
+
+SECTIONS = ('main', 'sec', 'irn_label', 'adp', 'cues')
+
+
 def main():
+    import argparse
     import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--only', nargs='+', choices=SECTIONS,
+                    default=list(SECTIONS))
+    only = ap.parse_args().only
     if not torch.cuda.is_available():
         raise SystemExit('profile_torch_hsn: needs a CUDA card')
     from wsss_tpu_torch.data import registry
@@ -218,23 +274,26 @@ def main():
     imgs = raw.to(torch.float32)
     probs = seg.probs(imgs)
     out = {'card': smi, 'batch': BATCH, 'size': SIZE}
-    for stage, fn in (
-            ('cam', lambda: seg.probs(imgs)),
-            ('crf', lambda: mean_field(probs, imgs, seg.cfg)),
-            ('segment_batch', lambda: seg.segment_batch(raw))):
-        prof, wall_ms, busy_ms, kernels = profile_window(torch, fn, ITERS)
-        if not kernels:
-            raise SystemExit(f'{stage}: the profiler recorded no device '
-                             'time')
-        out[stage] = report(stage, wall_ms, busy_ms, kernels, TOP)
-    trace = ROOT / 'out' / 'torch_hsn_trace.json'
-    trace.parent.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(trace))
-    print(f'[trace] {trace.relative_to(ROOT)}')
-    out['img_per_s'] = BATCH / (out['segment_batch']['wall_ms'] / 1e3)
-    out.update(profile_sec(torch, gen))
-    out.update(profile_irn_label(torch, gen))
-    out.update(profile_adp(torch, gen))
+    if 'main' in only:
+        for stage, fn in (
+                ('cam', lambda: seg.probs(imgs)),
+                ('crf', lambda: mean_field(probs, imgs, seg.cfg)),
+                ('segment_batch', lambda: seg.segment_batch(raw))):
+            prof, wall_ms, busy_ms, kernels = profile_window(torch, fn,
+                                                             ITERS)
+            if not kernels:
+                raise SystemExit(f'{stage}: the profiler recorded no '
+                                 'device time')
+            out[stage] = report(stage, wall_ms, busy_ms, kernels, TOP)
+        trace = ROOT / 'out' / 'torch_hsn_trace.json'
+        trace.parent.mkdir(exist_ok=True)
+        prof.export_chrome_trace(str(trace))
+        print(f'[trace] {trace.relative_to(ROOT)}')
+        out['img_per_s'] = BATCH / (out['segment_batch']['wall_ms'] / 1e3)
+    for section, fn in (('sec', profile_sec), ('irn_label', profile_irn_label),
+                        ('adp', profile_adp), ('cues', profile_cues)):
+        if section in only:
+            out.update(fn(torch, gen))
     print(json.dumps(out))
 
 

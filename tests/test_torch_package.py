@@ -76,6 +76,23 @@ def test_entry_points_default_to_cuda():
     from wsss_tpu_torch.train.sec_dsrg import SECDSRGPredictor
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         SECDSRGPredictor('SEC', 3)
+    from wsss_tpu_torch.methods.gradcam_cues import (
+        ADPCueGenerator, VOCDeepGlobeCueGenerator)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        VOCDeepGlobeCueGenerator(registry.get('DeepGlobe'), fg)
+    adp = _ClassifierHandle.random('M7', 31, 16, device='cpu')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        ADPCueGenerator(adp, 'M7')
+    import argparse
+    from wsss_tpu_torch.cli import common, gen_cues
+    args = common.add_common_args(argparse.ArgumentParser()).parse_args(
+        ['--dataset', 'DeepGlobe', '--model', 'M7', '--img_size', '16'])
+    assert args.device == 'cuda'
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        common.load_handle(args, 6, 16)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        gen_cues.main(['--dataset', 'DeepGlobe', '--model', 'M7',
+                       '--img_size', '16', '--synthetic_n', '2'])
 
 
 def test_kernel_wrappers_take_cpu_or_cuda_only():
@@ -91,3 +108,19 @@ def test_kernel_wrappers_take_cpu_or_cuda_only():
     assert K.LAUNCHES == before            # the plain version counts none
     with pytest.raises(ValueError, match='no bilateral kernel'):
         K.bilateral_splat(x.to('meta'), cell.to('meta'), 8, 2, 2, 3)
+
+
+def test_split_files_are_byte_copies():
+    """The port ships its own copy of the reference's split lists and
+    reads no file of the JAX package."""
+    ours = PORT / 'data' / 'splits'
+    ref = ROOT / 'wsss_tpu' / 'data' / 'splits'
+    names = sorted(p.relative_to(ref) for p in ref.rglob('*.txt'))
+    assert names and names == sorted(p.relative_to(ours)
+                                     for p in ours.rglob('*.txt'))
+    for n in names:
+        assert (ours / n).read_bytes() == (ref / n).read_bytes(), n
+    from wsss_tpu_torch.data.pipeline import packaged_split_path
+    path = pathlib.Path(packaged_split_path('ADP-morph', 'segtest'))
+    assert path == ours / 'adp' / 'evaluation.txt'
+    assert packaged_split_path('VOC2012', 'nonexistent') is None

@@ -1,16 +1,21 @@
 """Carry the JAX package's weights into the port's modules.
 
-Input: the flax variables of a ``VGG16Classifier`` or ``M7Classifier``
-(``{'params': ..., 'batch_stats': ...}``) or the ``params`` tree of a
-``SECNet`` or ``DSRGNet``, as nested dicts of **numpy** arrays.  This
-module never touches jax: the caller converts the leaves
-(``jax.tree_util.tree_map(np.asarray, variables)``).
+Input: the flax variables of a ``VGG16Classifier`` (with or without
+BatchNorm), ``M7Classifier`` or ``MVariantClassifier``
+(``{'params': ..., 'batch_stats': ...}``; no ``batch_stats`` without
+BatchNorm) or the ``params`` tree of a ``SECNet`` or ``DSRGNet``, as
+nested dicts of **numpy** arrays.  This module never touches jax: the
+caller converts the leaves (``jax.tree_util.tree_map(np.asarray,
+variables)``).  ``classifier_params`` maps the other way, a classifier's
+weights to the flax ``params`` tree (the model triplet writes it).
 
 DeepLab mapping: ``trunk/conv{s}_{i}`` -> ``trunk.convs[s-1][i-1]``,
 ``head/fc6..fc8`` (SEC) or ``branch{rate}/fc6..fc8`` (DSRG) -> the head's
 convolutions; ``kernel`` HWIO -> ``weight`` OIHW, ``bias`` as is.
 
-Classifier mapping, per stage and per index i:
+Classifier mapping: stages ``backbone/layer{1..5}`` (VGG16),
+``layer1`` / ``layer2`` / ``layer3_p1`` (M7, X1.7) or ``stages_{i}``
+(M1-M6), and per stage and index i:
   * ``Conv_i.kernel`` HWIO -> ``convs[i].weight`` OIHW; ``bias`` as is;
   * ``BatchNorm_i.scale`` / ``bias`` and ``batch_stats`` ``mean`` /
     ``var`` -> ``bns[i]`` weight / bias / running_mean / running_var
@@ -24,8 +29,10 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from wsss_tpu_torch.models.backbones import (M7Classifier, VGG16Classifier,
-                                             VGGStage, _Classifier)
+from wsss_tpu_torch.models.backbones import (M7Classifier,
+                                             MVariantClassifier,
+                                             VGG16Classifier, VGGStage,
+                                             _Classifier)
 from wsss_tpu_torch.models.deeplab import DSRGNet, SECNet
 
 
@@ -51,6 +58,25 @@ def _load_stage(stage: VGGStage, params: Mapping, stats: Mapping) -> None:
         bn.running_var.copy_(_t(s['var']))
 
 
+def stages_of(model: _Classifier):
+    """[(stage, its flax path)] of a classifier."""
+    if isinstance(model, VGG16Classifier):
+        return [(st, ('backbone', f'layer{i + 1}'))
+                for i, st in enumerate(model.backbone.stages)]
+    if isinstance(model, M7Classifier):
+        return [(getattr(model, n), (n,))
+                for n in ('layer1', 'layer2', 'layer3_p1')]
+    if isinstance(model, MVariantClassifier):
+        return [(st, (f'stages_{i}',)) for i, st in enumerate(model.stages)]
+    raise TypeError(f'no flax mapping for {type(model).__name__}')
+
+
+def _at(tree: Mapping, path) -> Mapping:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 @torch.no_grad()
 def load_flax_variables(model: _Classifier, variables: Mapping
                         ) -> _Classifier:
@@ -58,20 +84,35 @@ def load_flax_variables(model: _Classifier, variables: Mapping
     return it.  Raises KeyError on a missing entry."""
     params = variables['params']
     stats = variables.get('batch_stats', {})
-    if isinstance(model, VGG16Classifier):
-        named = [(s, params['backbone'][f'layer{i + 1}'],
-                  stats.get('backbone', {}).get(f'layer{i + 1}', {}))
-                 for i, s in enumerate(model.backbone.stages)]
-    elif isinstance(model, M7Classifier):
-        named = [(getattr(model, n), params[n], stats.get(n, {}))
-                 for n in ('layer1', 'layer2', 'layer3_p1')]
-    else:
-        raise TypeError(f'no flax mapping for {type(model).__name__}')
-    for stage, p, s in named:
-        _load_stage(stage, p, s)
+    for stage, path in stages_of(model):
+        _load_stage(stage, _at(params, path),
+                    _at(stats, path) if len(stage.bns) else {})
     model.head.weight.copy_(_t(params['head']['kernel']).t())
     model.head.bias.copy_(_t(params['head']['bias']))
     return model
+
+
+@torch.no_grad()
+def classifier_params(model: _Classifier) -> dict:
+    """The flax ``params`` tree (numpy float32 leaves) of ``model``:
+    the inverse of ``load_flax_variables`` without the batch stats."""
+    def a(t):
+        return t.detach().to('cpu', torch.float32).numpy()
+
+    params: dict = {}
+    for stage, path in stages_of(model):
+        node = params
+        for k in path:
+            node = node.setdefault(k, {})
+        for i, conv in enumerate(stage.convs):
+            node[f'Conv_{i}'] = {'kernel': a(conv.weight.permute(2, 3, 1, 0)),
+                                 'bias': a(conv.bias)}
+        for i, bn in enumerate(stage.bns):
+            node[f'BatchNorm_{i}'] = {'scale': a(bn.weight),
+                                      'bias': a(bn.bias)}
+    params['head'] = {'kernel': a(model.head.weight.t()),
+                      'bias': a(model.head.bias)}
+    return params
 
 
 def load_flax_deeplab(model, params: Mapping):

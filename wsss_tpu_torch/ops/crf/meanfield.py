@@ -60,6 +60,14 @@ MXU_CELL_MULT = 1.35
 _MXU_DISABLED = bool(os.environ.get('WSSS_TPU_NO_MXU'))
 _MXU_DS_DISABLED = bool(os.environ.get('WSSS_TPU_NO_SPATIAL_DS'))
 
+# the reference's bf16 mean-field state (meanfield.py:58): the grid
+# path's loop keeps U, Q, the normalizers and the messages in bfloat16
+# (the Gaussian message's products accumulate in float32), on a CUDA
+# device only, as the reference's interpret mode always keeps float32.
+# The reference turns it on by default on its TPU; the port keeps float32
+# unless a caller sets this flag.
+_CRF_STATE_BF16 = False
+
 
 # the native permutohedral route (CPU tensors only) uses another
 # algorithm, so which route ran changes labels; tests that want the
@@ -127,19 +135,26 @@ def _gauss_band(n: int, sxy: float) -> np.ndarray:
 
 
 def _gaussian_filter_raw(x: torch.Tensor, sxy: float,
-                         ref_round: bool = False) -> torch.Tensor:
+                         ref_round: bool = False,
+                         dtype=None) -> torch.Tensor:
     """K @ x with K = exp(-|dp|^2/2 sxy^2) (self weight 1) over the two
     spatial axes of x [B, H, W, C]: one band-matrix product per axis.
     ref_round rounds the operands to bf16 as the reference's message
-    does (meanfield.py:615-616)."""
+    does (meanfield.py:615-616).  dtype casts the operands (bf16 under
+    the bf16 state; the products accumulate in float32 and, unlike the
+    reference's, round to dtype between the two axes) and the result
+    returns in x's dtype."""
     b0 = torch.as_tensor(_gauss_band(x.shape[1], float(sxy)),
                          device=x.device)
     b1 = torch.as_tensor(_gauss_band(x.shape[2], float(sxy)),
                          device=x.device)
     if ref_round:
         b0, b1, x = bf16_round(b0), bf16_round(b1), bf16_round(x)
-    t1 = torch.einsum('hk,bkwc->bhwc', b0, x)
-    return torch.einsum('wk,bhkc->bhwc', b1, t1)
+    xd = x
+    if dtype is not None:
+        b0, b1, xd = b0.to(dtype), b1.to(dtype), x.to(dtype)
+    t1 = torch.einsum('hk,bkwc->bhwc', b0, xd)
+    return torch.einsum('wk,bhkc->bhwc', b1, t1).to(x.dtype)
 
 
 def _grid_shape(hw: Tuple[int, int], sxy: float, srgb: float,
@@ -514,8 +529,9 @@ def _mxu_ok(hw: Tuple[int, int], n_ch: int, config) -> bool:
 
 def _mean_field_mxu(probs: torch.Tensor, imgs: torch.Tensor, *, g_sxy,
                     g_compat, bi_sxy, bi_srgb, bi_compat, iterations,
-                    exclude_self=True, ref_round=False) -> torch.Tensor:
-    """Batched mean field over the bilateral grid, f32 state.
+                    exclude_self=True, ref_round=False,
+                    state_bf16=False) -> torch.Tensor:
+    """Batched mean field over the bilateral grid.
 
     The reference splits a batch into chunks to bound the TPU's working
     set: 2 images where the grid's v2 kernels run, 1 where its v1
@@ -529,7 +545,16 @@ def _mean_field_mxu(probs: torch.Tensor, imgs: torch.Tensor, *, g_sxy,
 
     ref_round=True rounds to bf16 where the reference does (filter input
     and output, grid kernels, Gaussian-message operands) — a CPU-test
-    switch only."""
+    switch only.
+
+    state_bf16 (``mean_field`` passes ``_CRF_STATE_BF16`` on a CUDA
+    device only; elsewhere the state stays float32, as in the reference's
+    interpret mode, while a direct call runs it on any device): after
+    the float32 normalizers, U, Q and the normalizers drop to bf16 and
+    the loop runs in bf16 as the reference's does (meanfield.py:602-630).  The grid kernels keep
+    their float32 inputs and outputs: the filter's bf16 input is cast up
+    exactly and its output rounds to bf16, where the reference's filter
+    returns its input's dtype.  Returns float32."""
     c = probs.shape[-1]
     h, w = probs.shape[-3:-1]
     imgs = imgs.to(torch.float32)
@@ -563,17 +588,26 @@ def _mean_field_mxu(probs: torch.Tensor, imgs: torch.Tensor, *, g_sxy,
                           device=probs.device)
         n_g = torch.rsqrt(torch.clamp(_gaussian_filter_raw(ones, g_sxy),
                                       min=1e-20))
+    msg_dtype = None
+    if state_bf16:
+        msg_dtype = torch.bfloat16
+        U, Q, n_b, n_b_up = (t.to(msg_dtype) for t in (U, Q, n_b, n_b_up))
+        if g_compat:
+            n_g = n_g.to(msg_dtype)
 
     def bilateral(v):
-        if not ref_round:
-            return grid.filter(v)
-        return bf16_round(grid.filter(bf16_round(v)))  # :625, :1148
+        if ref_round:
+            return bf16_round(grid.filter(bf16_round(v)))  # :625, :1148
+        if v.dtype != torch.float32:
+            return grid.filter(v.to(torch.float32)).to(v.dtype)
+        return grid.filter(v)
 
     for _ in range(iterations):
         msg = 0.
         if g_compat:
             m = n_g * _gaussian_filter_raw(n_g * Q, g_sxy,
-                                           ref_round=ref_round)
+                                           ref_round=ref_round,
+                                           dtype=msg_dtype)
             if exclude_self:
                 m = m - (n_g * n_g) * Q
             msg = msg + g_compat * m
@@ -586,7 +620,7 @@ def _mean_field_mxu(probs: torch.Tensor, imgs: torch.Tensor, *, g_sxy,
             m = m - (n_b_up * n_b_up) * Q
         msg = msg + bi_compat * m
         Q = torch.softmax(-U + msg, dim=-1)
-    return Q
+    return Q.to(torch.float32)
 
 
 def _mean_field_single(probs: torch.Tensor, imgs: torch.Tensor, *, g_sxy,
@@ -678,7 +712,9 @@ def mean_field(probs: torch.Tensor, img: torch.Tensor, config,
             p_np[i], i_np[i], config, exclude_self=exclude_self)
             for i in range(b)]))
     if mxu:
-        return _mean_field_mxu(probs, img, **kw)
+        return _mean_field_mxu(probs, img, **kw,
+                               state_bf16=(_CRF_STATE_BF16 and
+                                           probs.device.type == 'cuda'))
     chunk = _single_chunk(b, hw, c, config)
     if chunk >= b:
         return _mean_field_single(probs, img, **kw)

@@ -1,6 +1,6 @@
-"""Image resampling and the Gaussian blur of the port (counterpart of
-``wsss_tpu/ops/filters.py`` ``resize_bilinear`` / ``resize_nearest`` /
-``gaussian_blur``).
+"""Image resampling, the Gaussian blur and the 3x3 median of the port
+(counterpart of ``wsss_tpu/ops/filters.py`` ``resize_bilinear`` /
+``resize_nearest`` / ``gaussian_blur`` / ``median3``).
 
 The reference resizes with ``jax.image.resize``: half-pixel centres, and
 an antialiasing triangle kernel widened by the scale when downsampling.
@@ -78,3 +78,15 @@ def gaussian_blur(img: torch.Tensor, sigma: float = 2.0,
     x = F.conv2d(x, k.view(1, 1, -1, 1))
     x = F.conv2d(x, k.view(1, 1, 1, -1))
     return x.reshape(lead + (h, w))
+
+
+def median3(img: torch.Tensor) -> torch.Tensor:
+    """3x3 median filter over the last two axes of [..., H, W]
+    (scipy.ndimage.median_filter(size=3)).  The reference pads with
+    numpy's 'symmetric' mode, which repeats the edge sample; for a one-
+    sample pad that is torch's 'replicate' ('reflect' would skip it)."""
+    lead, (h, w) = img.shape[:-2], img.shape[-2:]
+    x = F.pad(img.reshape((-1, 1, h, w)), (1, 1, 1, 1), mode='replicate')
+    stack = torch.stack([x[:, 0, dy:dy + h, dx:dx + w]
+                         for dy in range(3) for dx in range(3)], dim=-1)
+    return torch.sort(stack, dim=-1).values[..., 4].reshape(lead + (h, w))

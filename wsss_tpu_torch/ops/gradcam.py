@@ -1,13 +1,16 @@
 """Grad-CAM of the port (counterpart of ``wsss_tpu/ops/gradcam.py``
-``gradcam_weights``, ``grad_cam_confidence`` and ``cs_gradcam``).
+``gradcam_weights``, ``grad_cam``, ``grad_cam_confidence`` and
+``cs_gradcam``).
 
 The Grad-CAM weights are input-independent: computed once on a zero
 image.  Per class c, the gradient of the pre-sigmoid logit y_c with
 respect to the final conv activations is normalized by its RMS
-(``g / (sqrt(mean(g^2)) + 1e-5)``) and averaged over space into a static
-[F, C] matrix.  HistoSegNet's CAM applies ReLU after the per-map resize,
-max-normalizes per image and scales by the confidence scores of the
-passing classes.
+(``g / (sqrt(mean(g^2)) + 1e-5)``) and averaged over space into a static [F, C] matrix, in the model's compute
+dtype.  The 02_cues CAM (``grad_cam``) applies ReLU before any resize and
+masks by the passing classes; HistoSegNet's applies ReLU after the
+per-map resize, max-normalizes per image and scales by the confidence
+scores of the passing classes.  Both compute in float32: bf16 features
+and weights are cast up first, as the reference's promotion does.
 """
 from __future__ import annotations
 
@@ -41,13 +44,25 @@ def gradcam_weights(feats_fn: Callable[[torch.Tensor], torch.Tensor],
     return torch.stack(rows).t().contiguous().detach()
 
 
+def grad_cam(feats: torch.Tensor, weights: torch.Tensor,
+             is_pass: torch.Tensor) -> torch.Tensor:
+    """02_cues CAM (02_cues/utilities.py:128-144): ReLU(feats @ weights)
+    times the pass mask.  feats [B,h,w,F], weights [F,C], is_pass bool
+    [B,C].  Returns float32 [B,h,w,C].  (The reference's ``keep_inds``
+    and ``upsample_hw``, which no caller passes, are left out.)"""
+    cams = torch.relu(torch.einsum('bhwf,fc->bhwc', feats.to(torch.float32),
+                                   weights.to(torch.float32)))
+    return cams * is_pass[:, None, None, :].to(cams.dtype)
+
+
 def grad_cam_confidence(feats: torch.Tensor, weights: torch.Tensor,
                         is_pass: torch.Tensor, conf_scores: torch.Tensor,
                         upsample_hw: Tuple[int, int]) -> torch.Tensor:
     """HistoSegNet CAM: feats [B,h,w,F] @ weights [F,C], resized (ReLU
     after the resize), per-image max-normalized and scaled by
     conf_scores * is_pass [B, C].  Returns [B, H, W, C]."""
-    cams = torch.einsum('bhwf,fc->bhwc', feats.to(torch.float32), weights)
+    cams = torch.einsum('bhwf,fc->bhwc', feats.to(torch.float32),
+                        weights.to(torch.float32))
     cams = torch.relu(resize_bilinear(cams, upsample_hw))
     cams = cams / torch.clamp(
         torch.amax(cams, dim=(1, 2, 3), keepdim=True), min=1e-7)
