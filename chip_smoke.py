@@ -81,7 +81,20 @@ Phases, in order; any failure exits non-zero and prints no result:
                config's;
   9. aligned — AlignedBilateralGrid.filter at batch 8, 321^2, C 21:
                launch counts, error against the plain versions;
- 10. result  — one JSON line of kernels, then the last line
+ 10. cli     — the command lines in-process, as a user runs them, in a
+               temporary directory: which optional libraries (PIL,
+               matplotlib, h5py) import here; cli.hsn.main on VOC2012
+               (random VGG16 fg + bg at 321^2, 16 synthetic images in
+               batches of 8; exactly 22 launches of each v2 kernel and no
+               other; csv and xlsx agree; mIoU and, with PIL, the labels of
+               its PNGs against segment_batch on the same images; img/s
+               beside segment_batch's), on ADP-morph X1.7 with learned CRF
+               .npy files (no hand kernel), cli.sec_dsrg.main --task
+               predict restoring a port checkpoint (the v2 kernels only;
+               img/s and mIoU beside predict_image's on the same images),
+               then cli.extract_eval.main, which must list the four IoU
+               tables they wrote, each once;
+ 11. result  — one JSON line of kernels, then the last line
                {"ok": true, "device": {...}}.
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Needs no network and imports nothing of JAX.
@@ -1702,6 +1715,247 @@ def phase_aligned(torch):
     return {'aligned': launches}
 
 
+# The cli phase holds the CLI's mIoU to the one the phase computes from
+# segment_batch / predict_image on the same images: the v2 splat adds in
+# f32 atomics, in another order each run, so near-tied pixels may flip
+# between two runs (the main phase holds labels at >= 0.999 against the
+# plain versions; every run so far read 1.000000).  A flipped pixel moves
+# the IoU of the two classes it leaves and joins by about 1/union.
+CLI_MIOU_TOL = 1e-3
+CLI_LABEL_FLOOR = 0.999
+
+
+def run_cli(torch, main, argv):
+    """(result, stdout, seconds, launches) of one in-process CLI call: the
+    launch counts set to 0 just before, read just after; the host clock
+    ends in a synchronize."""
+    import contextlib
+    import io
+    from wsss_tpu_torch.kernels import bilateral as K
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            res = main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        print(''.join(f'  | {line}\n'
+                      for line in out.getvalue().splitlines()), end='')
+    return res, out.getvalue(), dt, dict(K.LAUNCHES)
+
+
+def csv_and_xlsx_agree(csv_path):
+    """The IoU csv and its .xlsx sibling: same class rows, values within
+    the csv's 5 decimals."""
+    import csv
+    import os
+    from wsss_tpu_torch.eval import xlsx
+    xlsx_path = os.path.splitext(csv_path)[0] + '.xlsx'
+    check(os.path.isfile(csv_path) and os.path.isfile(xlsx_path),
+          f'{csv_path} or its .xlsx sibling was not written')
+    with open(csv_path) as f:
+        rows = list(csv.reader(f))[1:]
+    table = xlsx.read_table_xlsx(xlsx_path)
+    check([r[0] for r in rows[:-1]] + ['Mean'] == table['Class']
+          and rows[-1][0] == 'miou', f'{xlsx_path} rows differ from the csv')
+    err = max(abs(float(r[1]) - v) for r, v in zip(rows, table['IoU']))
+    check(err <= 5e-6, f'{xlsx_path} values differ from the csv by {err}')
+
+
+def labels_from_pngs(out_dir, names, palette):
+    """Labels [N, H, W] read back from the CLI's colour PNGs through the
+    palette (-1 where a colour is not in it)."""
+    import os
+    from PIL import Image
+    weights = np.array([65536, 256, 1])
+    codes = palette.astype(np.int64) @ weights
+    order = np.argsort(codes)
+    out = []
+    for name in names:
+        rgb = np.asarray(Image.open(os.path.join(out_dir, name + '.png')),
+                         np.int64) @ weights
+        at = np.clip(np.searchsorted(codes[order], rgb), 0, len(codes) - 1)
+        out.append(np.where(codes[order][at] == rgb, order[at], -1))
+    return np.stack(out)
+
+
+def phase_cli(torch):
+    """The 03c and 03a-predict command lines in-process, as a user runs
+    them: cli/hsn VOC2012 (random full-width VGG16 fg + bg at 321^2, 16
+    synthetic images in batches of 8), cli/hsn ADP-morph X1.7 with learned
+    CRF files, cli/sec_dsrg --task predict from a port checkpoint, then
+    cli/extract_eval over what they wrote."""
+    import importlib.util
+    import os
+    import tempfile
+    from wsss_tpu_torch.cli import extract_eval as extract_cli
+    from wsss_tpu_torch.cli import hsn as hsn_cli
+    from wsss_tpu_torch.cli import sec_dsrg as sec_cli
+    from wsss_tpu_torch.cli.sec_dsrg import predict_image
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.data.pipeline import SyntheticWSSS
+    from wsss_tpu_torch.eval import metrics, reports
+    from wsss_tpu_torch.io import checkpoint
+    from wsss_tpu_torch.methods.gradcam_cues import _ClassifierHandle
+    from wsss_tpu_torch.methods.hsn import HSNSegmenter
+    from wsss_tpu_torch.ops.crf import config as crf_config
+    from wsss_tpu_torch.train.sec_dsrg import SECDSRGPredictor
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ('PIL', 'matplotlib', 'h5py')}
+    print('[cli] optional libraries on this machine: '
+          + ', '.join(f'{m} {"yes" if v else "no"}' for m, v in have.items()))
+    saveimg = ['--saveimg'] if have['PIL'] else []
+    spec = registry.get('VOC2012')
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ev, out = os.path.join(tmp, 'eval'), os.path.join(tmp, 'out')
+        roots = ['--model_root', os.path.join(tmp, 'no_models'),
+                 '--eval_root', ev, '--out_root', out] + saveimg
+
+        # --- cli_hsn: VOC2012 VGG16 fg + bg, 16 images, batches of 8 ---
+        n_img = 16
+        res, _, dt, launches = run_cli(
+            torch, hsn_cli.main, ['--dataset', 'VOC2012', '--synthetic_n',
+                                  str(n_img), '--batchsize', str(BATCH)]
+            + roots)
+        check_launches(launches, V2_KERNELS, 'cli_hsn')
+        want = 2 * (crf_config.hsn_config('VOC2012', 'VGG16').iterations + 1)
+        check(all(launches[k] == want for k in V2_KERNELS),
+              f'cli_hsn launches {launches}, expected {want} of each v2 '
+              'kernel (2 batches x 11 filters)')
+        csv_and_xlsx_agree(os.path.join(ev, 'HSN_VOC2012_VGG16',
+                                        'hsn_iou.csv'))
+        t0 = time.perf_counter()
+        seg = HSNSegmenter(spec, *(_ClassifierHandle.random(
+            'VGG16', spec.n_fg_classes, SIZE, seed=s) for s in (0, 1)))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        batches = list(SyntheticWSSS('VOC2012', size=SIZE, n_images=n_img)
+                       .batches(BATCH, with_gt=True))
+        seg.segment_batch(batches[0].images)                # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels = [seg.segment_batch(b.images) for b in batches]
+        torch.cuda.synchronize()
+        direct_dt = time.perf_counter() - t0
+        conf = np.zeros((spec.n_seg_classes,) * 2, np.int64)
+        for lab, b in zip(labels, batches):
+            conf = metrics.accumulate_confusion(
+                conf, lab, torch.as_tensor(b.gt, device=lab.device),
+                spec.n_seg_classes)
+        miou = metrics.iou_from_confusion(conf)[1]
+        print(f'[cli] cli_hsn: {n_img} images through cli.hsn.main in '
+              f'{dt:.3f} s = {n_img / dt:.2f} img/s (its handles\' build '
+              f'included: {build_s:.3f} s when the phase builds the same '
+              f'two); segment_batch on the same host batches '
+              f'{n_img / direct_dt:.2f} img/s; launches {launches}')
+        print(f'[cli] cli_hsn mIoU {res["miou"]:.6f} against the phase\'s '
+              f'own confusion from segment_batch {miou:.6f} (tolerance '
+              f'{CLI_MIOU_TOL})')
+        check(abs(res['miou'] - miou) <= CLI_MIOU_TOL,
+              'cli_hsn mIoU disagrees with segment_batch')
+        if have['PIL']:
+            names = [n for b in batches for n in b.names]
+            got = labels_from_pngs(os.path.join(out, 'HSN_VOC2012_VGG16'),
+                                   names, spec.palette_array())
+            agree = float((got == torch.cat(labels).cpu().numpy()).mean())
+            print(f'[cli] cli_hsn labels read back from its PNGs agree with '
+                  f'segment_batch on {agree:.6f} of the pixels (tolerance '
+                  f'{CLI_LABEL_FLOOR})')
+            check(agree >= CLI_LABEL_FLOOR, 'cli_hsn PNG labels disagree')
+        paths['cli_hsn'] = launches
+
+        # --- cli_adp: ADP-morph X1.7, learned CRF files ----------------
+        pcc = []
+        for htt in ('morph', 'func'):
+            path = os.path.join(tmp, f'{htt}_optimal_pcc.npy')
+            np.save(path, np.array(
+                [crf_config.hsn_config(f'ADP-{htt}').astuple()], np.float64))
+            pcc += [f'--{htt}_pcc', path]
+        res, _, dt, launches = run_cli(
+            torch, hsn_cli.main, ['--dataset', 'ADP-morph', '--model', 'X1.7',
+                                  '--synthetic_n', '8'] + roots + pcc)
+        check_launches(launches, (), 'cli_adp (the direct window: no hand '
+                       'kernel, as in the reference)')
+        check(sorted(res) == ['miou_func', 'miou_morph']
+              and all(np.isfinite(v) for v in res.values()),
+              f'cli_adp result {res}')
+        for htt in ('morph', 'func'):
+            csv_and_xlsx_agree(os.path.join(ev, 'HSN_ADP-morph_X1.7', htt,
+                                            'hsn_iou.csv'))
+        print(f'[cli] cli_adp: 8 images at 224^2, each split segmented once '
+              f'for morph and once for func as the reference does, in '
+              f'{dt:.3f} s = {8 / dt:.2f} img/s; {res}; launches {launches}')
+        paths['cli_adp'] = launches
+
+        # --- cli_sec: SEC predict from a port checkpoint ---------------
+        n_cls, run_id = spec.n_seg_classes, 'SEC_VOC2012_VGG16'
+        pred = SECDSRGPredictor.random('SEC', n_cls, seed=0)
+        wsss = os.path.join(tmp, 'models_wsss')
+        checkpoint.save_checkpoint(os.path.join(wsss, run_id), 1,
+                                   {'params': pred.net.state_dict()})
+        heatmap = reports.confusion_heatmap
+        if not have['matplotlib']:
+            def skip_heatmap(path, conf, class_names, normalize=True):
+                print(f'[cli] {os.path.basename(path)} not written: '
+                      'matplotlib is not installed on this machine')
+            reports.confusion_heatmap = skip_heatmap
+        try:
+            res, text, dt, launches = run_cli(
+                torch, sec_cli.main, ['--task', 'predict', '--method', 'SEC',
+                                      '--dataset', 'VOC2012', '--synthetic_n',
+                                      '4', '--wsss_model_root', wsss] + roots)
+        finally:
+            reports.confusion_heatmap = heatmap
+        check(f'resumed {run_id} from step 1' in text,
+              'cli_sec did not restore the port checkpoint')
+        check_launches(launches, V2_KERNELS, 'cli_sec')
+        csv_and_xlsx_agree(os.path.join(ev, run_id, 'val_iou.csv'))
+        check(os.path.isfile(os.path.join(ev, run_id, 'confusion.png'))
+              == have['matplotlib'], 'confusion.png')
+        images = list(SyntheticWSSS('VOC2012', size=SIZE, n_images=4)
+                      .iter_native(with_gt=True))
+        b = images[0]
+        predict_image(pred, spec, 'SEC', b.images[0], b.gt.shape[1:])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        conf = np.zeros((n_cls, n_cls), np.int64)
+        for b in images:
+            lab = predict_image(pred, spec, 'SEC', b.images[0],
+                                b.gt.shape[1:])
+            conf = metrics.accumulate_confusion(
+                conf, lab, torch.as_tensor(b.gt[0], device=lab.device),
+                n_cls)
+        torch.cuda.synchronize()
+        direct_dt = time.perf_counter() - t0
+        miou = metrics.iou_from_confusion(conf)[1]
+        print(f'[cli] cli_sec: 4 native-size images through '
+              f'cli.sec_dsrg.main in {dt:.3f} s = {4 / dt:.2f} img/s '
+              f'(the SECNet build and the checkpoint restore included); '
+              f'predict_image on the same images {4 / direct_dt:.2f} img/s; '
+              f'mIoU {res["miou"]:.6f} against predict_image\'s {miou:.6f} '
+              f'(tolerance {CLI_MIOU_TOL}); launches {launches}')
+        check(abs(res['miou'] - miou) <= CLI_MIOU_TOL,
+              'cli_sec mIoU disagrees with predict_image')
+        paths['cli_sec'] = launches
+
+        # --- extract_eval over the phase's eval root --------------------
+        runs = sorted(r['run'] for r in reports.extract_eval(ev))
+        want = sorted([os.path.join('HSN_VOC2012_VGG16', 'hsn_iou.csv'),
+                       os.path.join('HSN_ADP-morph_X1.7', 'morph',
+                                    'hsn_iou.csv'),
+                       os.path.join('HSN_ADP-morph_X1.7', 'func',
+                                    'hsn_iou.csv'),
+                       os.path.join(run_id, 'val_iou.csv')])
+        _, text, _, _ = run_cli(torch, extract_cli.main, ['--eval_root', ev])
+        check(runs == want and all(text.count(r) == 1 for r in want),
+              f'extract_eval listed {runs}, expected {want} once each')
+    return paths
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -1724,6 +1978,8 @@ def main():
     paths.update(phase_irn_label(torch))
     paths.update(phase_adp_hsn(torch))
     paths.update(phase_aligned(torch))
+    print(f'[time] aligned done at {time.perf_counter() - t_start:.0f} s')
+    paths.update(phase_cli(torch))
     print(f'[time] all paths done at {time.perf_counter() - t_start:.0f} s')
     from wsss_tpu_torch.kernels import build
     sources = build.sources()

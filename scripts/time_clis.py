@@ -1,0 +1,63 @@
+#!/usr/bin/env python3
+"""Time the port's command lines as a user runs them: each in a new
+process, on the card by default, in a temporary working directory (so
+synthetic data and random weights), wall clock with the start-up.
+
+    python3 scripts/time_clis.py
+
+Prints one line per command (its wall seconds and exit code) after the
+card's name and power limit, and a JSON line of all of them last.
+Exits non-zero if any command fails.
+"""
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+COMMANDS = [
+    ('gen_cues VOC2012', ['gen_cues', '--dataset', 'VOC2012',
+                          '--task', 'eval']),
+    ('gen_cues ADP X1.7', ['gen_cues', '--dataset', 'ADP-morph',
+                           '--model', 'X1.7', '--task', 'eval']),
+    ('hsn VOC2012', ['hsn', '--dataset', 'VOC2012', '--saveimg']),
+    ('hsn ADP X1.7', ['hsn', '--dataset', 'ADP-morph', '--model', 'X1.7',
+                      '--saveimg']),
+    ('sec_dsrg predict SEC', ['sec_dsrg', '--task', 'predict', '--method',
+                              'SEC', '--saveimg']),
+    ('extract_eval', ['extract_eval']),
+    ('rename_runs --dry_run', ['rename_runs', 'eval', '--dry_run']),
+]
+
+
+def main():
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60)
+    print(smi.stdout.strip() or f'nvidia-smi: {smi.stderr.strip()}')
+    env = dict(os.environ)
+    env['PYTHONPATH'] = os.pathsep.join(
+        [ROOT] + ([env['PYTHONPATH']] if env.get('PYTHONPATH') else []))
+    times, failed = {}, False
+    with tempfile.TemporaryDirectory() as cwd:
+        for label, cmd in COMMANDS:
+            argv = [sys.executable, '-m', f'wsss_tpu_torch.cli.{cmd[0]}']
+            t0 = time.perf_counter()
+            res = subprocess.run(argv + cmd[1:], cwd=cwd, env=env,
+                                 capture_output=True, text=True, timeout=600)
+            dt = time.perf_counter() - t0
+            tail = (res.stdout + res.stderr).strip().splitlines()[-3:]
+            print(f'[{label}] {dt:.2f} s wall, exit {res.returncode}: '
+                  + ' / '.join(tail))
+            times[label] = round(dt, 2)
+            failed |= res.returncode != 0
+    print(json.dumps({'wall_s': times}))
+    return 1 if failed else 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -18,10 +18,12 @@ import torch
 
 from test_torch_models import perturbed_variables
 from wsss_tpu.io import checkpoint as jax_ckpt
+from wsss_tpu.io import legacy as jax_legacy
 from wsss_tpu.models import build_classifier as jax_build
 from wsss_tpu.models import infer_dtype as jax_infer_dtype
 from wsss_tpu_torch.io import checkpoint
 from wsss_tpu_torch.io.flax_bridge import (classifier_params,
+                                           classifier_variables,
                                            load_flax_variables)
 from wsss_tpu_torch.models.backbones import build_classifier, infer_dtype
 
@@ -184,9 +186,13 @@ def test_port_triplet_loads_into_jax(tmp_path, tag):
     th = np.array([0.0, 1.01, 0.3, 0.6], np.float32)
     checkpoint.export_triplet(str(tmp_path), 'sid', {'arch': tag}, net,
                               thresholds=th)
-    with pytest.raises(NotImplementedError, match='queue 1 item 3'):
-        checkpoint.export_triplet(str(tmp_path / 'h5'), 'sid', {}, net,
-                                  variables=variables)
+    # the Keras .h5 sibling, read by the JAX package's reader
+    checkpoint.export_triplet(str(tmp_path / 'h5'), 'sid', {}, net,
+                              variables=classifier_variables(net))
+    want = jax.tree_util.tree_map(np.asarray, variables)
+    got = jax_legacy.load_keras_weights_into(
+        want, jax_legacy.read_keras_h5(str(tmp_path / 'h5' / 'sid.h5')))
+    jax.tree_util.tree_map(np.testing.assert_array_equal, got, want)
     with pytest.raises(ValueError, match='has shape'):
         checkpoint.import_triplet(str(tmp_path), 'sid',
                                   build_classifier(tag, 5))

@@ -11,7 +11,8 @@ What is held: '{i}_labels' equal; '{i}_cues' equal, or else the dense
 one-hot volumes agree on >= 0.999 of each image's 41x41 seed pixels (the
 thresholds compare float CAMs, and the two packages' f32 convolutions
 differ in the last bits).  The tests print how many images were equal
-and the lowest agreement.  cues_iou.csv's mIoU within 1e-6."""
+and the lowest agreement.  cues_iou.csv's mIoU within 1e-6, its text and its .xlsx sibling's table
+equal."""
 import os
 import pickle
 
@@ -24,12 +25,14 @@ from test_torch_models import perturbed_variables
 from wsss_tpu.cli import gen_cues as jax_cli
 from wsss_tpu.data import registry as jax_registry
 from wsss_tpu.data.pipeline import SyntheticWSSS as JaxSynthetic
+from wsss_tpu.eval import xlsx as jax_xlsx
 from wsss_tpu.io import artifacts as jax_artifacts
 from wsss_tpu.io import checkpoint as jax_ckpt
 from wsss_tpu.methods import gradcam_cues as jax_gc
 from wsss_tpu_torch.cli import gen_cues as cli
 from wsss_tpu_torch.data import registry
 from wsss_tpu_torch.data.pipeline import SyntheticWSSS
+from wsss_tpu_torch.eval import xlsx
 from wsss_tpu_torch.io import artifacts
 from wsss_tpu_torch.methods import gradcam_cues as gc
 
@@ -184,6 +187,16 @@ def _cross_read(jax_path, port_path):
     return got, want
 
 
+def _xlsx_equal(root, ref, csv):
+    """The csv's .xlsx sibling equals the JAX CLI's as a table, each read
+    by the other package's reader."""
+    got = root / csv.replace('.csv', '.xlsx')
+    want = ref / csv.replace('.csv', '.xlsx')
+    table = jax_xlsx.read_table_xlsx(str(got))
+    assert table == xlsx.read_table_xlsx(str(want))
+    assert table['Class'][-1] == 'Mean' and len(table) == 2
+
+
 @pytest.mark.parametrize('task', ['gen', 'eval'])
 def test_cli_voc_equals_jax(tmp_path, reference_cli, task):
     models, ref, ref_result = reference_cli('VOC2012')
@@ -198,6 +211,7 @@ def test_cli_voc_equals_jax(tmp_path, reference_cli, task):
     assert abs(result['cue_miou'] - ref_result['cue_miou']) <= 1e-6
     csv = os.path.join('eval', 'VOC2012_M7', 'cues_iou.csv')
     assert (tmp_path / csv).read_text() == (ref / csv).read_text()
+    _xlsx_equal(tmp_path, ref, csv)
     pngs = sorted(os.listdir(ref / 'out' / 'VOC2012_M7'))
     assert len(pngs) == 2 * N_IMAGES
     assert sorted(os.listdir(tmp_path / 'out' / 'VOC2012_M7')) == pngs
@@ -225,6 +239,7 @@ def test_cli_adp_equals_jax(tmp_path, reference_cli, task):
             ref_result[f'cue_miou_{htt}'], abs=1e-6, nan_ok=True)
         csv = os.path.join('eval', 'ADP-morph_X1.7', htt, 'cues_iou.csv')
         assert (tmp_path / csv).read_text() == (ref / csv).read_text()
+        _xlsx_equal(tmp_path, ref, csv)
     assert bool(result) == (task == 'eval')   # {} after gen, as the reference
 
 

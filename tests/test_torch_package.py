@@ -42,7 +42,8 @@ _IMPORT_RE = re.compile(
 
 @pytest.mark.parametrize('path', sorted(PORT.rglob('*.py'))
                          + [ROOT / 'chip_smoke.py',
-                            ROOT / 'scripts' / 'profile_torch_hsn.py'],
+                            ROOT / 'scripts' / 'profile_torch_hsn.py',
+                            ROOT / 'scripts' / 'time_clis.py'],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
     assert not _IMPORT_RE.findall(path.read_text()), path
@@ -57,6 +58,37 @@ def test_kernels_are_not_built_at_import():
         'bilateral_cube_blur', 'bilateral_splat_aligned',
         'bilateral_slice_aligned', 'flat_color_blur'}
     assert sorted(build.sources()) == sorted(bilateral.LAUNCHES)
+
+
+def test_verbose_build_is_the_build_later_calls_load(tmp_path, monkeypatch):
+    """build(verbose=True) (chip_smoke.py's) adds -Xptxas -v, which only
+    logs: the libraries it writes are the ones a later build() finds, so
+    nothing compiles twice (nvcc faked: there is none here)."""
+    from wsss_tpu_torch.kernels import build
+    calls = []
+
+    class FakeNvcc:
+        returncode = 0
+
+        def __init__(self, argv, **kw):
+            calls.append(argv)
+            open(argv[argv.index('-o') + 1], 'w').close()
+
+        def communicate(self):
+            return '', 'ptxas info'
+
+    monkeypatch.setattr(build, 'BUILD_DIR', tmp_path)
+    monkeypatch.setattr(build, 'nvcc_path', lambda: 'nvcc')
+    monkeypatch.setattr(build.subprocess, 'Popen', FakeNvcc)
+    monkeypatch.setattr(build.ctypes, 'CDLL', str)
+    monkeypatch.setattr(build, '_LIBS', {})
+    build.build(verbose=True)
+    assert len(calls) == len(build.sources())
+    assert all('-v' in argv for argv in calls)
+    loaded = dict(build._LIBS)
+    monkeypatch.setattr(build, '_LIBS', {})
+    build.build()
+    assert len(calls) == len(build.sources()) and build._LIBS == loaded
 
 
 def test_entry_points_default_to_cuda():

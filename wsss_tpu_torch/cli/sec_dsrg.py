@@ -1,22 +1,35 @@
-"""03a — SEC / DSRG prediction (counterpart of the predict half of
-``wsss_tpu/cli/sec_dsrg.py``): FCN forward -> upscale -> test-time dense
-CRF -> argmax, one image at its native size at a time.
+"""CLI of the port: 03a — SEC / DSRG prediction (counterpart of the
+predict task of ``wsss_tpu/cli/sec_dsrg.py``): FCN forward -> upscale ->
+test-time dense CRF -> argmax, one image at its native size at a time,
+then the split's IoU csv + xlsx, the confusion heatmap and, asked for,
+colorized predictions with overlays.  Runs on ``--device`` (default the
+card); on synthetic data when no devkit is given, with the latest
+checkpoint under ``--wsss_model_root/<run id>`` or else random weights:
+
+    python -m wsss_tpu_torch.cli.sec_dsrg --task predict --method SEC
 
 Reference semantics (03a model.py:684-696): for every dataset but
 DeepGlobe the softmax score map AND the original image are resized to
 the ground truth's resolution and the test CRF runs there; for DeepGlobe
 the CRF runs at network resolution and only the argmax is resized.
 
-Training, dataset IO, checkpoints and the IoU reports of the reference's
-``main()`` are not ported yet (ROADMAP queue 1 items 10 and 12).
+``--task train`` raises NotImplementedError: training is not ported yet
+(ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
+import argparse
+import os
 from typing import Tuple
 
+import numpy as np
 import torch
 
+from wsss_tpu_torch.cli import common
 from wsss_tpu_torch.data import registry
+from wsss_tpu_torch.data.pipeline import prefetch
+from wsss_tpu_torch.eval import metrics, reports
+from wsss_tpu_torch.io import checkpoint
 from wsss_tpu_torch.methods.gradcam_cues import _normalizer
 from wsss_tpu_torch.ops.crf import config as crf_config
 from wsss_tpu_torch.ops.crf.meanfield import mean_field
@@ -78,10 +91,93 @@ def predict_image(predictor: SECDSRGPredictor, spec: registry.DatasetSpec,
 
 
 def main(argv=None):
-    raise NotImplementedError(
-        'the SEC/DSRG command line needs the dataset pipeline, checkpoints '
-        'and IoU reports, which are not ported yet (ROADMAP queue 1 item '
-        '12); call predict_image with a SECDSRGPredictor instead')
+    p = argparse.ArgumentParser(description=__doc__)
+    common.add_common_args(p)
+    p.add_argument('--task', default='train',
+                   choices=['train', 'predict'])
+    p.add_argument('--method', default='SEC', choices=['SEC', 'DSRG'])
+    p.add_argument('--epochs', type=int, default=0,
+                   help='0 = the reference sweep default for the '
+                        'dataset/method (03a demo.py:51-72)')
+    p.add_argument('--threshold', type=float, default=None,
+                   help='cue threshold recorded in the run id (naming '
+                        'parity with 03a; cues are pre-thresholded)')
+    p.add_argument('--lr', type=float, default=1e-4)
+    p.add_argument('--accum_num', type=int, default=1)
+    p.add_argument('--init_npy', default=None,
+                   help="reference DeepLab init weights (SEC init.npy / "
+                        "DSRG vgg16_deeplab_aspp.npy, 03a model.py:78-81)")
+    p.add_argument('--cues_pickle', default=None,
+                   help='localization_cues.pickle from 02_cues; synthetic '
+                        'cues from tags when absent')
+    p.add_argument('--train_split', default='train')
+    p.add_argument('--eval_split', default='val')
+    p.add_argument('--saveimg', action='store_true')
+    p.add_argument('--wsss_model_root', default='models_wsss')
+    p.add_argument('--val_every', type=int, default=200,
+                   help='steps between val mIoU evals during training '
+                        '(03a model.py:505-531; 0 = off)')
+    p.add_argument('--profile_dir', default=None,
+                   help='profiler trace output dir')
+    args = p.parse_args(argv)
+    if args.task == 'train':
+        raise NotImplementedError(
+            'SEC/DSRG training is not ported yet (ROADMAP queue 1 item 5); '
+            'only --task predict runs')
+
+    spec = registry.get(args.dataset)
+    n_cls = spec.n_seg_classes
+    size = 321 if not args.img_size else args.img_size  # model.py:34
+    sweep = SWEEP_DEFAULTS.get((args.dataset, args.method), (0.2, 8))
+    if args.threshold is None:
+        args.threshold = sweep[0]
+    run_id = f'{args.method}_{args.dataset}_{args.model}'
+    if args.threshold != sweep[0]:   # 02_cues naming quirk parity
+        run_id += f'_{args.threshold}'
+    ckpt_root = os.path.join(args.wsss_model_root, run_id)
+
+    predictor = SECDSRGPredictor.random(args.method, n_cls, seed=0,
+                                        device=args.device)
+    if args.init_npy:
+        from wsss_tpu_torch.io.flax_bridge import (deeplab_params,
+                                                   load_flax_deeplab)
+        from wsss_tpu_torch.io.legacy import load_deeplab_init_npy
+        load_flax_deeplab(predictor.net, load_deeplab_init_npy(
+            args.init_npy, deeplab_params(predictor.net)))
+        print(f'initialized trunk+head from {args.init_npy}')
+    if checkpoint.latest_step(ckpt_root) is not None:
+        state, st = checkpoint.restore_checkpoint(
+            ckpt_root, map_location=predictor.device)
+        predictor.net.load_state_dict(state['params'])
+        print(f'resumed {run_id} from step {st}')
+
+    # --- predict: FCN forward -> upscale -> test-time CRF -> eval ------
+    ds, _ = common.get_batches(args, args.eval_split, size, with_gt=True)
+    conf = np.zeros((n_cls, n_cls), np.int64)
+    out_dir = os.path.join(args.out_root, run_id)
+    for b in prefetch(ds.iter_native(with_gt=True)):
+        native = b.images[0]
+        gt = b.gt[0] if b.gt is not None else None
+        out_hw = gt.shape if gt is not None else native.shape[:2]
+        pred = predict_image(predictor, spec, args.method, native, out_hw,
+                             size=size)
+        if gt is not None:
+            conf = metrics.accumulate_confusion(
+                conf, pred, torch.as_tensor(gt, device=pred.device), n_cls)
+        if args.saveimg:
+            # colorized pred + overlay on the original (model.py:588-612)
+            reports.save_color_and_overlay(
+                out_dir, b.names[0], pred.cpu().numpy(),
+                spec.palette_array(), native, r=0.75)
+    iou, miou = metrics.iou_from_confusion(conf)
+    path = os.path.join(args.eval_root, run_id,
+                        f'{args.eval_split}_iou.csv')
+    reports.write_iou_csv(path, spec.seg_class_names, iou)
+    reports.confusion_heatmap(
+        os.path.join(args.eval_root, run_id, 'confusion.png'), conf,
+        spec.seg_class_names)
+    print(f'[{args.method}, {args.eval_split}] miou: {miou:.5f}')
+    return {'miou': miou}
 
 
 if __name__ == '__main__':

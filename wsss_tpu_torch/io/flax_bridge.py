@@ -6,8 +6,9 @@ BatchNorm), ``M7Classifier`` or ``MVariantClassifier``
 BatchNorm) or the ``params`` tree of a ``SECNet`` or ``DSRGNet``, as
 nested dicts of **numpy** arrays.  This module never touches jax: the
 caller converts the leaves (``jax.tree_util.tree_map(np.asarray,
-variables)``).  ``classifier_params`` maps the other way, a classifier's
-weights to the flax ``params`` tree (the model triplet writes it).
+variables)``).  ``classifier_params`` / ``classifier_variables`` and ``deeplab_params``
+map the other way, a module's weights to the flax tree (the model
+triplet and the Keras .h5 writer of ``io.legacy`` take them).
 
 DeepLab mapping: ``trunk/conv{s}_{i}`` -> ``trunk.convs[s-1][i-1]``,
 ``head/fc6..fc8`` (SEC) or ``branch{rate}/fc6..fc8`` (DSRG) -> the head's
@@ -38,6 +39,16 @@ from wsss_tpu_torch.models.deeplab import DSRGNet, SECNet
 
 def _t(a) -> torch.Tensor:
     return torch.as_tensor(np.array(a, dtype=np.float32))
+
+
+def _a(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to('cpu', torch.float32).numpy()
+
+
+def _conv_params(conv: torch.nn.Conv2d) -> dict:
+    """A convolution's flax leaves: OIHW -> HWIO kernel, bias as is."""
+    return {'kernel': _a(conv.weight.permute(2, 3, 1, 0)),
+            'bias': _a(conv.bias)}
 
 
 @torch.no_grad()
@@ -96,36 +107,55 @@ def load_flax_variables(model: _Classifier, variables: Mapping
 def classifier_params(model: _Classifier) -> dict:
     """The flax ``params`` tree (numpy float32 leaves) of ``model``:
     the inverse of ``load_flax_variables`` without the batch stats."""
-    def a(t):
-        return t.detach().to('cpu', torch.float32).numpy()
-
     params: dict = {}
     for stage, path in stages_of(model):
         node = params
         for k in path:
             node = node.setdefault(k, {})
         for i, conv in enumerate(stage.convs):
-            node[f'Conv_{i}'] = {'kernel': a(conv.weight.permute(2, 3, 1, 0)),
-                                 'bias': a(conv.bias)}
+            node[f'Conv_{i}'] = _conv_params(conv)
         for i, bn in enumerate(stage.bns):
-            node[f'BatchNorm_{i}'] = {'scale': a(bn.weight),
-                                      'bias': a(bn.bias)}
-    params['head'] = {'kernel': a(model.head.weight.t()),
-                      'bias': a(model.head.bias)}
+            node[f'BatchNorm_{i}'] = {'scale': _a(bn.weight),
+                                      'bias': _a(bn.bias)}
+    params['head'] = {'kernel': _a(model.head.weight.t()),
+                      'bias': _a(model.head.bias)}
     return params
+
+
+@torch.no_grad()
+def classifier_variables(model: _Classifier) -> dict:
+    """The flax variables of ``model``: ``params`` and, where the model
+    has BatchNorm, ``batch_stats`` (numpy float32 leaves); the inverse of
+    ``load_flax_variables``."""
+    stats: dict = {}
+    for stage, path in stages_of(model):
+        if not len(stage.bns):
+            continue
+        node = stats
+        for k in path:
+            node = node.setdefault(k, {})
+        for i, bn in enumerate(stage.bns):
+            node[f'BatchNorm_{i}'] = {'mean': _a(bn.running_mean),
+                                      'var': _a(bn.running_var)}
+    out = {'params': classifier_params(model)}
+    if stats:
+        out['batch_stats'] = stats
+    return out
+
+
+def _deeplab_heads(model):
+    if isinstance(model, SECNet):
+        return [(model.head, 'head')]
+    if isinstance(model, DSRGNet):
+        return [(b, f'branch{r}') for b, r in zip(model.branches, model.rates)]
+    raise TypeError(f'no flax mapping for {type(model).__name__}')
 
 
 def load_flax_deeplab(model, params: Mapping):
     """Copy the flax ``params`` tree (numpy leaves) of a SECNet or
     DSRGNet into ``model`` in place and return it.  Raises KeyError on a
     missing entry."""
-    if isinstance(model, SECNet):
-        heads = [(model.head, params['head'])]
-    elif isinstance(model, DSRGNet):
-        heads = [(b, params[f'branch{r}'])
-                 for b, r in zip(model.branches, model.rates)]
-    else:
-        raise TypeError(f'no flax mapping for {type(model).__name__}')
+    heads = [(h, params[key]) for h, key in _deeplab_heads(model)]
     for s, stage in enumerate(model.trunk.convs, start=1):
         for i, conv in enumerate(stage, start=1):
             _load_conv(conv, params['trunk'][f'conv{s}_{i}'])
@@ -133,3 +163,16 @@ def load_flax_deeplab(model, params: Mapping):
         for name in ('fc6', 'fc7', 'fc8'):
             _load_conv(getattr(head, name), p[name])
     return model
+
+
+@torch.no_grad()
+def deeplab_params(model) -> dict:
+    """The flax ``params`` tree (numpy float32 leaves) of a SECNet or
+    DSRGNet: the inverse of ``load_flax_deeplab``."""
+    params = {'trunk': {f'conv{s}_{i}': _conv_params(c)
+                        for s, stage in enumerate(model.trunk.convs, start=1)
+                        for i, c in enumerate(stage, start=1)}}
+    for head, key in _deeplab_heads(model):
+        params[key] = {n: _conv_params(getattr(head, n))
+                       for n in ('fc6', 'fc7', 'fc8')}
+    return params

@@ -8,8 +8,10 @@ directory (listed in ``.gitignore``), with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
 
-The hash covers the source, the headers (``csrc/*.cuh``) and the flags,
-so an edited source rebuilds.
+The hash covers the source, the headers (``csrc/*.cuh``) and these
+flags, so an edited source rebuilds; ``build(verbose=True)``'s
+``-Xptxas -v`` only logs, so it is left out and a verbose build is the
+one every later process loads.
 All sources build in parallel, one nvcc process each, at first use;
 nothing is built when the module is imported.
 """
@@ -55,8 +57,8 @@ def sources() -> Dict[str, pathlib.Path]:
     return {p.stem: p for p in sorted(CSRC.glob('*.cu'))}
 
 
-def _target(src: pathlib.Path, flags) -> pathlib.Path:
-    h = hashlib.sha256(src.read_bytes() + ' '.join(flags).encode())
+def _target(src: pathlib.Path) -> pathlib.Path:
+    h = hashlib.sha256(src.read_bytes() + ' '.join(NVCC_FLAGS).encode())
     for header in sorted(CSRC.glob('*.cuh')):
         h.update(header.read_bytes())
     return BUILD_DIR / f'{src.stem}-{h.hexdigest()[:16]}.so'
@@ -72,7 +74,7 @@ def build(verbose: bool = False) -> float:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src in sources().items():
-        so = _target(src, flags)
+        so = _target(src)
         if so.exists():
             continue
         tmp = so.with_suffix(f'.{os.getpid()}.tmp')
@@ -91,7 +93,7 @@ def build(verbose: bool = False) -> float:
         raise RuntimeError('kernel build failed:\n' + '\n'.join(errors))
     for name, src in sources().items():
         if name not in _LIBS:
-            _LIBS[name] = ctypes.CDLL(str(_target(src, flags)))
+            _LIBS[name] = ctypes.CDLL(str(_target(src)))
     return time.perf_counter() - t0
 
 

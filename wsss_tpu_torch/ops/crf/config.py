@@ -4,6 +4,8 @@ Mirrors the per-dataset CRF parameter tables shipped with the reference:
   * SEC train/test configs — 03a_sec-dsrg/SEC.py:18-30
   * DSRG train/test configs — 03a_sec-dsrg/DSRG.py:77-78
   * HistoSegNet per-dataset configs — 03c_hsn/demo.py:156-165
+    (ADP uses learned configs from {morph,func}_optimal_pcc.npy,
+     03c_hsn/demo.py:379-380, read by ``load_learned_config``).
 """
 from __future__ import annotations
 
@@ -61,6 +63,17 @@ def hsn_config(dataset: str, model_type: str = None) -> CRFConfig:
         if key in HSN_TEST:
             return HSN_TEST[key]
     raise KeyError(f'no HSN CRF config for {dataset}/{model_type}')
+
+
+def load_learned_config(npy_path: str) -> CRFConfig:
+    """Learned ADP CRF parameters from {morph,func}_optimal_pcc.npy
+    (03c_hsn/demo.py:379-380): a row of [g_sxy, g_compat, bi_sxy, bi_srgb,
+    bi_compat, n_infer].  (The reference's unused ``iterations=``
+    argument is left out: the count comes from the file.)"""
+    import numpy as np
+    row = np.asarray(np.load(npy_path)).reshape(-1)[:6]
+    return CRFConfig(float(row[0]), float(row[1]), float(row[2]),
+                     float(row[3]), float(row[4]), int(row[5]))
 
 
 # --- IRNet ir-label refinement (misc.imutils.crf_inference_label upstream:
