@@ -94,7 +94,29 @@ Phases, in order; any failure exits non-zero and prints no result:
                img/s and mIoU beside predict_image's on the same images),
                then cli.extract_eval.main, which must list the four IoU
                tables they wrote, each once;
- 11. result  — one JSON line of kernels, then the last line
+ 11. train   — training at full width, random weights from seed 0, no
+               hand kernel may launch on any of its train paths:
+               train_cls (ClassifierTrainer, VGG16 with BN, VOC 20
+               classes, 321^2, batch 8, 10 steps on one synthetic batch,
+               dropout on, lr 0.01 constant: img/s, ms a step by CUDA
+               events (forward, backward, optimizer), peak memory; the
+               losses finite and falling), then one step at batch 2 on the
+               card against the CPU from the same weights and dropout
+               masks (TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL); train_sec and
+               train_dsrg (SECDSRGTrainer, 321^2, batch 8, 21 classes, 10
+               steps, synthetic cues as the CLI makes them: img/s, stage
+               ms (FCN forward and backward, CRF layer, region grow,
+               losses, optimizer), peak memory, grown_px; every loss
+               finite); then the training command lines in-process in a
+               temporary directory: cli.train_classifier on VOC2012 VGG16
+               and ADP-morph X1.7 (16 images, batch 8, 1 epoch, calibration,
+               the triplet read back with its thresholds), cli.sec_dsrg
+               --task train for SEC and DSRG (1 epoch on 16 images: log
+               keys, checkpoint at step 2), then --task predict --method SEC
+               from that checkpoint (exactly 44 launches of each v2
+               kernel); it stands in for the ROC, .h5 and heatmap writers
+               where matplotlib or h5py is missing and says so;
+ 12. result  — one JSON line of kernels, then the last line
                {"ok": true, "device": {...}}.
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Needs no network and imports nothing of JAX.
@@ -1956,6 +1978,385 @@ def phase_cli(torch):
     return paths
 
 
+# The train phase's card-against-CPU step: VGG16 (BN) at batch 2 and
+# TRAIN_CHECK_SIZE^2 (so the CPU's step takes seconds, not a minute), the
+# same weights and dropout masks, float32 on both (TF32 off on the card).
+# The loss is held to TRAIN_LOSS_RTOL; an updated parameter to
+# TRAIN_PARAM_ATOL: cuDNN and the CPU sum in other orders, and BatchNorm
+# nets of random weights at batch 2 amplify that in the gradients (the
+# CPU tests measure up to 1e-2 of a gradient of ~1.6 between float32 and
+# float64 at 32^2), times the step's lr 0.01 and the Nesterov factor 1.9.
+TRAIN_CHECK_SIZE = 161
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_ATOL = 5e-4
+TRAIN_STEPS = 10
+
+
+class StepClock:
+    """CUDA events at the points of a train step: the forward of `fwd`
+    (hooks), the CRF layer and the region growing (wrapped where the loss
+    modules call them), `net`'s zero_grad (the end of the losses, just
+    before the backward) and the optimizer's step (wrapped on the
+    instance)."""
+
+    def __init__(self, torch, net, opt, fwd, wrap=()):
+        self.torch, self.marks = torch, []
+        self.hooks = [
+            fwd.register_forward_pre_hook(lambda m, a: self.mark('fwd0')),
+            fwd.register_forward_hook(lambda m, a, o: self.mark('fwd1'))]
+        zero_grad, step = net.zero_grad, opt.step
+
+        def timed_zero_grad(*a, **kw):
+            self.mark('loss1')
+            return zero_grad(*a, **kw)
+
+        def timed_step():
+            self.mark('opt0')
+            out = step()
+            self.mark('opt1')
+            return out
+        net.zero_grad, opt.step = timed_zero_grad, timed_step
+        self.restore = []
+        for mod, name in wrap:
+            fn = getattr(mod, name)
+            setattr(mod, name, self.timed(name, fn))
+            self.restore.append((mod, name, fn))
+
+    def timed(self, name, fn):
+        def call(*a, **kw):
+            self.mark(name + '0')
+            out = fn(*a, **kw)
+            self.mark(name + '1')
+            return out
+        return call
+
+    def mark(self, key):
+        e = self.torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.marks.append((key, e))
+
+    def close(self):
+        for mod, name, fn in self.restore:
+            setattr(mod, name, fn)
+        for h in self.hooks:
+            h.remove()
+
+    def stages(self):
+        """Mean ms per step of each stage over the recorded steps (the
+        first step, a warm-up, left out)."""
+        self.torch.cuda.synchronize()
+        steps, cur = [], {}
+        for key, e in self.marks:
+            if key == 'fwd0' and cur:
+                steps.append(cur)
+                cur = {}
+            cur[key] = e
+        steps.append(cur)
+        out = {}
+        for s in steps[1:]:
+            ms = lambda a, b: s[a].elapsed_time(s[b])
+            st = {'forward': ms('fwd0', 'fwd1'),
+                  'backward': ms('loss1', 'opt0'),
+                  'optimizer': ms('opt0', 'opt1')}
+            extra = 0.0
+            for name in ('crf_layer', 'region_grow'):
+                if name + '0' in s:
+                    st[name] = ms(name + '0', name + '1')
+                    extra += st[name]
+            st['losses'] = ms('fwd1', 'loss1') - extra
+            for k, v in st.items():
+                out[k] = out.get(k, 0.0) + v / (len(steps) - 1)
+        return out
+
+
+def train_loop(torch, step_fn, n_img):
+    """Losses and img/s of TRAIN_STEPS calls of step_fn(i) (the first a
+    warm-up outside the clock), host clock ending in a synchronize; peak
+    device memory over the calls."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    parts = [step_fn(0)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parts += [step_fn(i) for i in range(1, TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    ips = n_img * (TRAIN_STEPS - 1) / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return [{k: float(v) for k, v in p.items()} for p in parts], ips, peak
+
+
+def stage_line(stages):
+    return ', '.join(f'{k} {v:.2f}' for k, v in stages.items())
+
+
+def seeded_dropout(torch, seed):
+    """A stand-in for backbones.dropout whose k-th mask of a run comes
+    from a CPU generator seeded seed + k, on any device: the same masks
+    for the card's step and the CPU's."""
+    calls = []
+
+    def dropout(x, rate, generator):
+        g = torch.Generator().manual_seed(seed + len(calls))
+        calls.append(x.shape)
+        keep = (torch.rand(x.shape, generator=g) < 1.0 - rate).to(x.device)
+        return torch.where(keep, x / (1.0 - rate),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+    return dropout, calls
+
+
+def card_vs_cpu_step(torch, init_state, x, t):
+    """(loss on the card, on the CPU, max |param difference|) of one
+    ClassifierTrainer step of VGG16 from init_state on batch x, t."""
+    from wsss_tpu_torch.models import backbones
+    from wsss_tpu_torch.train.classifier import ClassifierTrainer
+    out = []
+    keep = backbones.dropout
+    try:
+        for dev in ('cuda', 'cpu'):
+            backbones.dropout, calls = seeded_dropout(torch, 1000)
+            model = backbones.build_classifier('VGG16', 20)
+            model.load_state_dict(init_state)
+            tr = ClassifierTrainer(model, lr=0.01, schedule='const',
+                                   device=dev)
+            m = tr.train_step(x, t, torch.Generator(dev).manual_seed(0))
+            check(len(calls) == 2, f'{len(calls)} dropouts on {dev}')
+            out.append((float(m['loss']), {k: v.detach().cpu() for k, v in
+                                           model.state_dict().items()}))
+    finally:
+        backbones.dropout = keep
+    (l_gpu, p_gpu), (l_cpu, p_cpu) = out
+    err = max(float((p_gpu[k].float() - p_cpu[k].float()).abs().max())
+              for k in p_gpu)
+    return l_gpu, l_cpu, err
+
+
+def phase_train_steps(torch):
+    """train_cls, train_sec, train_dsrg: the trainers at full width on the
+    card, TRAIN_STEPS steps each on one synthetic batch."""
+    from wsss_tpu_torch.cli.sec_dsrg import _synthetic_cues
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.data.pipeline import SyntheticWSSS
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.methods import dsrg as dsrg_mod
+    from wsss_tpu_torch.methods import sec as sec_mod
+    from wsss_tpu_torch.methods.gradcam_cues import _normalizer
+    from wsss_tpu_torch.models.backbones import build_classifier
+    from wsss_tpu_torch.train.classifier import ClassifierTrainer
+    from wsss_tpu_torch.train.sec_dsrg import SECDSRGTrainer
+    spec = registry.get('VOC2012')
+    b = next(SyntheticWSSS('VOC2012', size=SIZE, n_images=BATCH)
+             .batches(BATCH, with_gt=True))
+    raw = torch.as_tensor(b.images, device='cuda')
+    tags = torch.as_tensor(b.tags, device='cuda')
+    paths, ips_of = {}, {}
+
+    # --- train_cls: VGG16 (BN), VOC 20 classes, dropout on, lr 0.01 ---
+    model = build_classifier('VGG16', spec.n_fg_classes)
+    check(model.dtype == torch.float32, 'train_cls must build in float32')
+    trainer = ClassifierTrainer(model, lr=0.01, schedule='const')
+    trainer.init(torch.Generator().manual_seed(0))
+    init_state = {k: v.detach().cpu().clone()
+                  for k, v in model.state_dict().items()}
+    x = _normalizer(spec.norm_cues, 'cuda')(raw)
+    # the classifier's forward hooks sit on its trunk: the step calls the
+    # model's logits method, which no hook sees
+    clock = StepClock(torch, model, trainer.tx, model.backbone)
+    gen = torch.Generator('cuda')
+    K.reset_launch_counts()
+    losses, ips, peak = train_loop(torch, lambda i: trainer.train_step(
+        x, tags, gen.manual_seed(i)), BATCH)
+    paths['train_cls'] = dict(K.LAUNCHES)
+    check_launches(paths['train_cls'], (), 'train_cls (no hand kernel)')
+    st = clock.stages()
+    clock.close()
+    ls = [p['loss'] for p in losses]
+    print(f'[train] train_cls VGG16 (BN) at {SIZE}^2, batch {BATCH}, '
+          f'{TRAIN_STEPS} steps on one batch: {ips:.2f} img/s; ms a step: '
+          f'forward + backward {st["forward"] + st["backward"]:.2f} '
+          f'({stage_line(st)}); peak memory {peak:.2f} GiB; losses '
+          f'{[round(v, 5) for v in ls]}')
+    check(all(np.isfinite(ls)) and ls[-1] < ls[0],
+          f'train_cls losses {ls}: not finite or not falling')
+    ips_of['train_cls'] = ips
+    s = TRAIN_CHECK_SIZE
+    xs = torch.nn.functional.interpolate(
+        raw[:2].permute(0, 3, 1, 2), size=(s, s), mode='bilinear',
+        antialias=True).permute(0, 2, 3, 1)
+    xs = _normalizer(spec.norm_cues, 'cuda')(xs).cpu()
+    l_gpu, l_cpu, err = card_vs_cpu_step(torch, init_state, xs,
+                                         tags[:2].cpu())
+    print(f'[train] train_cls one step, card against CPU (batch 2 at '
+          f'{s}^2, same weights and dropout masks): loss {l_gpu:.6f} vs '
+          f'{l_cpu:.6f} (rtol {TRAIN_LOSS_RTOL}), max |dparam| {err:.3e} '
+          f'(tolerance {TRAIN_PARAM_ATOL})')
+    check(abs(l_gpu - l_cpu) <= TRAIN_LOSS_RTOL * abs(l_cpu),
+          'train_cls loss differs between the card and the CPU')
+    check(err <= TRAIN_PARAM_ATOL,
+          'train_cls updated parameters differ between the card and CPU')
+    del trainer, model, clock
+
+    # --- train_sec / train_dsrg: DeepLab at 321^2, 21 classes ----------
+    xs = _normalizer(spec.norm_sec, 'cuda')(raw)
+    n_seg = spec.n_seg_classes
+    grid = (SIZE - 1) // 8 + 1                  # the FCN's seed grid, 41
+    cues = [_synthetic_cues(b.gt, n_seg, grid, i)
+            for i in range(TRAIN_STEPS)]
+    for method in ('SEC', 'DSRG'):
+        name = f'train_{method.lower()}'
+        tr = SECDSRGTrainer(method, n_seg)
+        tr.init(torch.Generator().manual_seed(0))
+        wrap = ([(sec_mod, 'crf_layer')] if method == 'SEC' else
+                [(dsrg_mod, 'crf_layer'), (dsrg_mod, 'region_grow')])
+        clock = StepClock(torch, tr.net, tr.tx, tr.net, wrap)
+        dev_cues = [(torch.as_tensor(c, device='cuda'),
+                     torch.as_tensor(l, device='cuda')) for c, l in cues]
+        K.reset_launch_counts()
+        parts, ips, peak = train_loop(torch, lambda i: tr.train_step(
+            xs, raw, *dev_cues[i], gen.manual_seed(i)), BATCH)
+        paths[name] = dict(K.LAUNCHES)
+        st = clock.stages()
+        clock.close()
+        check_launches(paths[name], (), f'{name} (the seed-grid CRF takes '
+                       'the dense structure: no hand kernel)')
+        totals = [p['total'] for p in parts]
+        check(all(np.isfinite(v) for p in parts for v in p.values()),
+              f'{name}: a non-finite loss {parts}')
+        grown = (f'; grown_px {[int(p["grown_px"]) for p in parts]}'
+                 if method == 'DSRG' else '')
+        print(f'[train] {name} {method} DeepLab at {SIZE}^2, batch {BATCH}, '
+              f'{TRAIN_STEPS} steps (synthetic cues as the CLI makes them): '
+              f'{ips:.2f} img/s; ms a step: FCN forward + backward '
+              f'{st["forward"] + st["backward"]:.2f} ({stage_line(st)}); '
+              f'peak memory {peak:.2f} GiB; totals '
+              f'{[round(v, 5) for v in totals]}{grown}')
+        ips_of[name] = ips
+        del tr, clock
+    return paths, ips_of
+
+
+def phase_cli_train(torch, ips_of):
+    """The training command lines in-process in a temporary directory:
+    cli.train_classifier on VOC2012 VGG16 and ADP-morph X1.7 (16 synthetic
+    images, batch 8, 1 epoch, calibration, triplet), cli.sec_dsrg --task
+    train for SEC and DSRG (1 epoch on 16 images), then --task predict
+    --method SEC from the trained checkpoint."""
+    import importlib.util
+    import os
+    import tempfile
+    from wsss_tpu_torch.cli import sec_dsrg as sec_cli
+    from wsss_tpu_torch.cli import train_classifier as train_cli
+    from wsss_tpu_torch.eval import reports
+    from wsss_tpu_torch.io import checkpoint, legacy
+    from wsss_tpu_torch.models.backbones import build_classifier
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ('matplotlib', 'h5py')}
+    keep = reports.plot_rocs, legacy.write_keras_h5, reports.confusion_heatmap
+
+    def stand_in(lib, what):
+        def skip(path, *a, **kw):
+            print(f'[cli_train] {os.path.basename(path)} not written: '
+                  f'{lib} is not installed on this machine ({what})')
+        return skip
+    if not have['matplotlib']:
+        reports.plot_rocs = stand_in('matplotlib', 'plot_rocs')
+        reports.confusion_heatmap = stand_in('matplotlib',
+                                             'confusion_heatmap')
+    if not have['h5py']:
+        legacy.write_keras_h5 = stand_in('h5py', 'write_keras_h5')
+    paths, n_img = {}, 16
+    cwd = os.getcwd()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            roots = ['--model_root', 'models', '--eval_root', 'eval',
+                     '--out_root', 'out', '--synthetic_n', str(n_img),
+                     '--batchsize', str(BATCH)]
+            for ds, tag, n_cls, size in (('VOC2012', 'VGG16', 20, SIZE),
+                                         ('ADP-morph', 'X1.7', 51, 224)):
+                name = f'cli_train_{tag.lower().replace(".", "")}'
+                res, text, dt, launches = run_cli(
+                    torch, train_cli.main, ['--dataset', ds, '--model', tag,
+                                            '--epochs', '1'] + roots)
+                check_launches(launches, (), name)
+                sid = f'{ds}_{tag}'
+                check(res['sid'] == sid and np.isfinite(res['mean_f1']),
+                      f'{name} result {res}')
+                check(checkpoint.latest_step(
+                    os.path.join('models', sid, 'ckpt')) == 2,
+                      f'{name}: no checkpoint at step 2')
+                check(os.path.isfile(os.path.join('eval', sid,
+                                                  sid + '_metrics.csv')),
+                      f'{name}: no _metrics.csv')
+                _, _, th = checkpoint.import_triplet(
+                    os.path.join('models', sid), sid,
+                    build_classifier(tag, n_cls))
+                check(th is not None and th.shape == (n_cls,),
+                      f'{name}: thresholds {None if th is None else th.shape}')
+                wrote = sorted(os.listdir(os.path.join('models', sid)))
+                print(f'[cli_train] {name}: {n_img} images at {size}^2 '
+                      f'through cli.train_classifier.main (1 epoch, '
+                      f'calibration, triplet) in {dt:.3f} s = '
+                      f'{n_img / dt:.2f} img/s; {n_cls} thresholds read back '
+                      f'through import_triplet; wrote {wrote}; launches '
+                      f'{launches}' + (f'; train_cls direct '
+                                       f'{ips_of["train_cls"]:.2f} img/s'
+                                       if tag == 'VGG16' else ''))
+                paths[name] = launches
+            wsss = ['--wsss_model_root', 'models_wsss', '--dataset',
+                    'VOC2012', '--eval_root', 'eval', '--out_root', 'out',
+                    '--batchsize', str(BATCH)]
+            for method in ('SEC', 'DSRG'):
+                name = f'cli_train_{method.lower()}'
+                run_id = f'{method}_VOC2012_VGG16'
+                _, text, dt, launches = run_cli(
+                    torch, sec_cli.main, wsss + [
+                        '--task', 'train', '--method', method, '--epochs',
+                        '1', '--synthetic_n', str(n_img)])
+                check_launches(launches, (), name)
+                check(f'trained {run_id} for 2 steps' in text,
+                      f'{name} did not train 2 steps')
+                with open(os.path.join('log', run_id, 'train.jsonl')) as f:
+                    rows = [json.loads(line) for line in f]
+                want = {'step', 'time', 'seed', 'constrain', 'total'} | (
+                    {'expand'} if method == 'SEC' else {'grown_px'})
+                check(len(rows) == 2 and all(set(r) == want for r in rows),
+                      f'{name} log rows {rows}')
+                check(checkpoint.latest_step(
+                    os.path.join('models_wsss', run_id)) == 2,
+                      f'{name}: no checkpoint at step 2')
+                print(f'[cli_train] {name}: {n_img} images through '
+                      f'cli.sec_dsrg.main --task train (1 epoch, 2 steps) in '
+                      f'{dt:.3f} s = {n_img / dt:.2f} img/s against the '
+                      f'direct train_step\'s {ips_of["train_" + method.lower()]:.2f}; '
+                      f'log keys {sorted(want)}; launches {launches}')
+                paths[name] = launches
+            _, text, dt, launches = run_cli(
+                torch, sec_cli.main, wsss + ['--task', 'predict', '--method',
+                                             'SEC', '--synthetic_n', '4'])
+            check('resumed SEC_VOC2012_VGG16 from step 2' in text,
+                  'the SEC predict run did not restore the trained step 2')
+            check_launches(launches, V2_KERNELS, 'cli_predict_trained')
+            check(all(launches[k] == 44 for k in V2_KERNELS),
+                  f'cli_predict_trained launches {launches}, expected 44 of '
+                  'each v2 kernel (4 images x 11 filters)')
+            print(f'[cli_train] cli_predict_trained: SEC --task predict from '
+                  f'the trained checkpoint, 4 images in {dt:.3f} s = '
+                  f'{4 / dt:.2f} img/s; launches {launches}')
+            paths['cli_predict_trained'] = launches
+            os.chdir(cwd)                 # before the directory goes
+    finally:
+        os.chdir(cwd)
+        reports.plot_rocs, legacy.write_keras_h5, \
+            reports.confusion_heatmap = keep
+    return paths
+
+
+def phase_train(torch):
+    paths, ips_of = phase_train_steps(torch)
+    paths.update(phase_cli_train(torch, ips_of))
+    return paths
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -1980,6 +2381,9 @@ def main():
     paths.update(phase_aligned(torch))
     print(f'[time] aligned done at {time.perf_counter() - t_start:.0f} s')
     paths.update(phase_cli(torch))
+    print(f'[time] cli done at {time.perf_counter() - t_start:.0f} s')
+    paths.update(phase_train(torch))
+    print(f'[time] train done at {time.perf_counter() - t_start:.0f} s')
     print(f'[time] all paths done at {time.perf_counter() - t_start:.0f} s')
     from wsss_tpu_torch.kernels import build
     sources = build.sources()

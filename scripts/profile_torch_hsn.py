@@ -15,9 +15,11 @@ C 21 filter of that grid alone) and its adp_hsn path (ADPHSNSegmenter,
 X1.7, batch 8 at 224^2: the whole segment_batch and the morph CRF on
 the direct window, one call each).  Then cue generation (chip_smoke.py's
 cues path: VOCDeepGlobeCueGenerator, VGG16 fg + bg, batch 8 at 321^2:
-generate_batch on card tensors and run on one host batch) and the main
+generate_batch on card tensors and run on one host batch), the main
 path's two stages under the bf16 opt-ins (bf16 classifiers, bf16 CRF
-state).  ``--only`` picks sections.  Prints per stage: host wall ms per
+state), and the train steps of chip_smoke.py's train phase (``train``:
+VGG16 classifier, SEC, DSRG, batch 8 at 321^2, one step a call).
+``--only`` picks sections.  Prints per stage: host wall ms per
 call, device kernel ms per call, the device's idle share of the window, the device time by
 kernel group and the top kernels.  The idle share is 1 - (union of the
 kernels' intervals) / window, since summed kernel time can exceed the
@@ -43,6 +45,7 @@ GROUPS = (                       # first match wins, on the kernel's name
     ('convolution', r'conv|implicit|fprop|winograd|fft|DSE::|'
                     r'pointwise_mult_and_sum_complex|cudnn'),
     ('matmul', r'gemm|xmma|cutlass|cublas|sgemm|splitK|dot_kernel'),
+    ('optimizer', r'multi_tensor_apply'),
     ('resize', r'upsample|interp|antialias|bilinear'),
     ('softmax / reductions', r'softmax|reduce|max|argmax|sum'),
     ('memset / copy', r'memset|memcpy|copy|fill|CatArray|cat_'),
@@ -242,7 +245,45 @@ def profile_cues(torch, gen):
         ('crf_bf16_state', crf_bf16_state, ITERS)), {})
 
 
-SECTIONS = ('main', 'sec', 'irn_label', 'adp', 'cues')
+def profile_train(torch, gen):
+    """The train steps of chip_smoke.py's train phase at full width, one
+    synthetic batch of 8 at 321^2: ClassifierTrainer on VGG16 (BN, 20
+    classes, dropout on) and SECDSRGTrainer for SEC and DSRG (21 classes,
+    synthetic cues as the CLI makes them)."""
+    from wsss_tpu_torch.cli.sec_dsrg import _synthetic_cues
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.data.pipeline import SyntheticWSSS
+    from wsss_tpu_torch.methods.gradcam_cues import _normalizer
+    from wsss_tpu_torch.models.backbones import build_classifier
+    from wsss_tpu_torch.train.classifier import ClassifierTrainer
+    from wsss_tpu_torch.train.sec_dsrg import SECDSRGTrainer
+    spec = registry.get('VOC2012')
+    b = next(SyntheticWSSS('VOC2012', size=SIZE, n_images=BATCH)
+             .batches(BATCH, with_gt=True))
+    raw = torch.as_tensor(b.images, device='cuda')
+    tags = torch.as_tensor(b.tags, device='cuda')
+    cls = ClassifierTrainer(build_classifier('VGG16', spec.n_fg_classes),
+                            lr=0.01, schedule='const')
+    cls.init(torch.Generator().manual_seed(0))
+    x_cls = _normalizer(spec.norm_cues, 'cuda')(raw)
+    x_sec = _normalizer(spec.norm_sec, 'cuda')(raw)
+    cues, labels = (torch.as_tensor(a, device='cuda') for a in
+                    _synthetic_cues(b.gt, spec.n_seg_classes, 41, 0))
+    stages = [('train_cls', lambda: cls.train_step(x_cls, tags, gen),
+               ITERS)]
+    for method in ('SEC', 'DSRG'):
+        tr = SECDSRGTrainer(method, spec.n_seg_classes)
+        tr.init(torch.Generator().manual_seed(0))
+        stages.append((f'train_{method.lower()}',
+                       lambda tr=tr: tr.train_step(x_sec, raw, cues, labels,
+                                                   gen), ITERS))
+    out = profile_stages(torch, stages, {})
+    for name in ('train_cls', 'train_sec', 'train_dsrg'):
+        out[name + '_img_per_s'] = BATCH / (out[name]['wall_ms'] / 1e3)
+    return out
+
+
+SECTIONS = ('main', 'sec', 'irn_label', 'adp', 'cues', 'train')
 
 
 def main():
@@ -291,7 +332,8 @@ def main():
         print(f'[trace] {trace.relative_to(ROOT)}')
         out['img_per_s'] = BATCH / (out['segment_batch']['wall_ms'] / 1e3)
     for section, fn in (('sec', profile_sec), ('irn_label', profile_irn_label),
-                        ('adp', profile_adp), ('cues', profile_cues)):
+                        ('adp', profile_adp), ('cues', profile_cues),
+                        ('train', profile_train)):
         if section in only:
             out.update(fn(torch, gen))
     print(json.dumps(out))

@@ -6,7 +6,9 @@ synthetic data and random weights), wall clock with the start-up.
     python3 scripts/time_clis.py
 
 Prints one line per command (its wall seconds and exit code) after the
-card's name and power limit, and a JSON line of all of them last.
+card's name and power limit, and a JSON line of all of them last.  The
+training commands come first (1 epoch each), so the SEC prediction
+restores the SEC checkpoint they wrote.
 Exits non-zero if any command fails.
 """
 import json
@@ -19,6 +21,12 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 COMMANDS = [
+    ('train_classifier VOC2012', ['train_classifier', '--dataset',
+                                  'VOC2012', '--epochs', '1']),
+    ('sec_dsrg train SEC', ['sec_dsrg', '--task', 'train', '--method',
+                            'SEC', '--epochs', '1']),
+    ('sec_dsrg train DSRG', ['sec_dsrg', '--task', 'train', '--method',
+                             'DSRG', '--epochs', '1']),
     ('gen_cues VOC2012', ['gen_cues', '--dataset', 'VOC2012',
                           '--task', 'eval']),
     ('gen_cues ADP X1.7', ['gen_cues', '--dataset', 'ADP-morph',

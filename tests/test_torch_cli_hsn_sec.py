@@ -43,6 +43,7 @@ from wsss_tpu_torch.cli import extract_eval as extract_cli
 from wsss_tpu_torch.cli import hsn as hsn_cli
 from wsss_tpu_torch.cli import rename_runs as rename_cli
 from wsss_tpu_torch.cli import sec_dsrg as sec_cli
+from wsss_tpu_torch.cli import train_classifier as train_cli
 from wsss_tpu_torch.data import registry
 from wsss_tpu_torch.io import checkpoint
 from wsss_tpu_torch.methods import hsn
@@ -299,15 +300,26 @@ def test_rename_runs_equals_jax(tmp_path, capsys, dry_run):
     assert rename_cli._renamed('a_train37.5_b') == 'a_balanced_b'
 
 
-def test_cli_entry_points_default_to_cuda_and_refuse_training(tmp_path):
+def test_cli_entry_points_default_to_cuda_including_training(tmp_path,
+                                                           monkeypatch):
+    """Every command line raises the CUDA error without a card; the
+    training tasks run with --device cpu."""
+    monkeypatch.chdir(tmp_path)
     argv = ['--dataset', 'DeepGlobe', '--model', 'M7', '--img_size', '16',
             '--synthetic_n', '2', '--model_root', str(tmp_path)]
+    train = ['--task', 'train', '--epochs', '1', '--batchsize', '2']
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             hsn_cli.main(argv)
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             sec_cli.main(argv + ['--task', 'predict'])
-    with pytest.raises(NotImplementedError, match='queue 1 item 5'):
-        sec_cli.main(argv + ['--task', 'train', '--device', 'cpu'])
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            sec_cli.main(argv + train)
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            train_cli.main(argv + train)
+    sec_cli.main(argv + train + ['--device', 'cpu'])
+    assert (tmp_path / 'log' / 'SEC_DeepGlobe_M7' / 'train.jsonl').is_file()
+    train_cli.main(argv + train + ['--device', 'cpu'])
+    assert (tmp_path / 'DeepGlobe_M7' / 'DeepGlobe_M7.npz').is_file()
     with pytest.raises(SystemExit):
         hsn_cli.main(argv + ['--mesh', 'auto', '--device', 'cpu'])

@@ -105,9 +105,16 @@ def test_entry_points_default_to_cuda():
     fg = _ClassifierHandle.random('M7', 6, 16, device='cpu')
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         HSNSegmenter(registry.get('DeepGlobe'), fg, drop_last_class=True)
-    from wsss_tpu_torch.train.sec_dsrg import SECDSRGPredictor
+    from wsss_tpu_torch.train.sec_dsrg import (SECDSRGPredictor,
+                                               SECDSRGTrainer)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         SECDSRGPredictor('SEC', 3)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        SECDSRGTrainer('DSRG', 3)
+    from wsss_tpu_torch.models.backbones import build_classifier
+    from wsss_tpu_torch.train.classifier import ClassifierTrainer
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        ClassifierTrainer(build_classifier('M7', 3))
     from wsss_tpu_torch.methods.gradcam_cues import (
         ADPCueGenerator, VOCDeepGlobeCueGenerator)
     with pytest.raises(RuntimeError, match='CUDA is not available'):

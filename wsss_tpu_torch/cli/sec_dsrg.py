@@ -1,20 +1,29 @@
-"""CLI of the port: 03a — SEC / DSRG prediction (counterpart of the
-predict task of ``wsss_tpu/cli/sec_dsrg.py``): FCN forward -> upscale ->
-test-time dense CRF -> argmax, one image at its native size at a time,
-then the split's IoU csv + xlsx, the confusion heatmap and, asked for,
-colorized predictions with overlays.  Runs on ``--device`` (default the
-card); on synthetic data when no devkit is given, with the latest
-checkpoint under ``--wsss_model_root/<run id>`` or else random weights:
+"""CLI of the port: 03a — SEC / DSRG training and prediction
+(counterpart of ``wsss_tpu/cli/sec_dsrg.py``).  Runs on ``--device``
+(default the card); on synthetic data when no devkit is given:
 
+    python -m wsss_tpu_torch.cli.sec_dsrg --task train --method SEC
     python -m wsss_tpu_torch.cli.sec_dsrg --task predict --method SEC
 
+Both tasks start from the latest checkpoint under
+``--wsss_model_root/<run id>`` where there is one (the weights and, for
+training, the optimizer's state), else from random weights or
+``--init_npy``.
+
+train: the DeepLab FCN learns from the cue pickle (or, without one,
+synthetic cues from the downsampled ground truth) with the CRF layer
+(+ region growing for DSRG) inside the step; val mIoU of the raw FCN
+every ``--val_every`` steps; the losses go to
+``log/<run id>/train.jsonl``, a checkpoint to the run's directory at
+each epoch's end.
+
+predict: FCN forward -> upscale -> test-time dense CRF -> argmax, one
+image at its native size at a time, then the split's IoU csv + xlsx, the
+confusion heatmap and, asked for, colorized predictions with overlays.
 Reference semantics (03a model.py:684-696): for every dataset but
 DeepGlobe the softmax score map AND the original image are resized to
 the ground truth's resolution and the test CRF runs there; for DeepGlobe
 the CRF runs at network resolution and only the argmax is resized.
-
-``--task train`` raises NotImplementedError: training is not ported yet
-(ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -29,12 +38,13 @@ from wsss_tpu_torch.cli import common
 from wsss_tpu_torch.data import registry
 from wsss_tpu_torch.data.pipeline import prefetch
 from wsss_tpu_torch.eval import metrics, reports
-from wsss_tpu_torch.io import checkpoint
+from wsss_tpu_torch.io import artifacts, checkpoint
 from wsss_tpu_torch.methods.gradcam_cues import _normalizer
 from wsss_tpu_torch.ops.crf import config as crf_config
 from wsss_tpu_torch.ops.crf.meanfield import mean_field
 from wsss_tpu_torch.ops.filters import resize_bilinear, resize_nearest
-from wsss_tpu_torch.train.sec_dsrg import SECDSRGPredictor
+from wsss_tpu_torch.train.sec_dsrg import SECDSRGPredictor, SECDSRGTrainer
+from wsss_tpu_torch.utils.timing import MetricsLogger, profile_trace
 
 SEED_SIZE = 41  # 03a model.py:35
 
@@ -90,6 +100,113 @@ def predict_image(predictor: SECDSRGPredictor, spec: registry.DatasetSpec,
     return pred.to(torch.int32)
 
 
+def _load_cues(path):
+    if path and os.path.exists(path):
+        return artifacts.read_cue_pickle(path)
+    return None
+
+
+def _batch_cues(cue_dict, indices, n_cls, grid=SEED_SIZE):
+    """Unpack pickle cues (41x41 contract) and nearest-resize them to the
+    FCN grid when training at a non-reference input size; tags from the
+    pickle's '{i}_labels' with the background always set."""
+    dense, labels = [], []
+    for i in indices:
+        cue = (artifacts.unpack_cues(
+            cue_dict, int(i), (SEED_SIZE, SEED_SIZE, n_cls))
+            if cue_dict else np.zeros((SEED_SIZE, SEED_SIZE, n_cls),
+                                      np.float32))
+        if grid != SEED_SIZE:
+            cue = resize_nearest(torch.from_numpy(cue), (grid, grid)).numpy()
+        dense.append(cue)
+        lab = np.zeros((n_cls,), np.float32)
+        lab[0] = 1.0  # bg always tagged (model.py:244-246 semantics)
+        if cue_dict is not None:
+            lab[np.asarray(cue_dict.get(f'{int(i)}_labels', []),
+                           np.int64)] = 1.0
+        labels.append(lab)
+    return np.stack(dense), np.stack(labels)
+
+
+def _synthetic_cues(gt, n_cls, grid, step):
+    """The fallback without a cue pickle: one-hot cues from the ground
+    truth nearest-resized to the FCN grid, 10% of the pixels kept, drawn
+    from ``np.random.default_rng(step)``; tags from the resized truth."""
+    gt_s = resize_nearest(
+        torch.as_tensor(gt, dtype=torch.float32)[..., None],
+        (grid, grid))[..., 0].numpy().astype(np.int64)
+    cues = np.eye(n_cls, dtype=np.float32)[np.clip(gt_s, 0, n_cls - 1)]
+    cues *= (np.random.default_rng(step)
+             .random(cues.shape[:3] + (1,)) < 0.1)
+    labels = np.zeros((gt.shape[0], n_cls), np.float32)
+    labels[:, 0] = 1
+    for i in range(gt.shape[0]):
+        labels[i][np.unique(gt_s[i])] = 1
+    return cues, labels
+
+
+def train(args, trainer: SECDSRGTrainer, spec, run_id: str, size: int,
+          ckpt_root: str) -> None:
+    """The train task's loop (03a model.py train): per-epoch shuffle, the
+    ragged tail dropped, a checkpoint at each epoch's end."""
+    dev = trainer.device
+    n_cls = trainer.num_classes
+    norm = _normalizer(spec.norm_sec, dev)
+    logger = MetricsLogger(os.path.join('log', run_id, 'train.jsonl'))
+
+    def val_miou():
+        """Periodic raw-FCN val mIoU (03a model.py:505-531)."""
+        vds, _ = common.get_batches(args, args.eval_split, size,
+                                    with_gt=True)
+        conf = np.zeros((n_cls, n_cls), np.int64)
+        for vb in vds.batches(args.batchsize, with_gt=True):
+            if vb.gt is None:
+                continue
+            imgs = torch.as_tensor(vb.images).to(dev, torch.float32)
+            logits = trainer.predict_logits(norm(imgs))
+            pred = torch.argmax(resize_bilinear(logits, vb.gt.shape[1:]),
+                                dim=-1)
+            conf = metrics.accumulate_confusion(
+                conf, pred, torch.as_tensor(vb.gt, device=dev), n_cls)
+        return float(metrics.iou_from_confusion(conf)[1])
+
+    cue_dict = _load_cues(args.cues_pickle)
+    ds, _ = common.get_batches(args, args.train_split, size)
+    grid = (size - 1) // 8 + 1  # FCN stride-8 SAME grid
+    step = 0
+    with profile_trace(args.profile_dir):
+        for epoch in range(args.epochs):
+            # per-epoch shuffle (03a model.py:279 tf.data .shuffle) with a
+            # prefetch thread overlapping decode with the train step
+            for b in prefetch(ds.batches(args.batchsize,
+                                         with_gt=cue_dict is None,
+                                         shuffle=True)):
+                if b.images.shape[0] != args.batchsize:
+                    continue
+                if cue_dict is not None:
+                    cues, labels = _batch_cues(cue_dict, b.indices, n_cls,
+                                               grid)
+                else:
+                    cues, labels = _synthetic_cues(b.gt, n_cls, grid, step)
+                imgs = torch.as_tensor(b.images).to(dev, torch.float32)
+                parts = trainer.train_step(
+                    norm(imgs), imgs, cues, labels,
+                    torch.Generator(dev).manual_seed(step))
+                step += 1
+                logger.log(step, **{k: float(v) for k, v in parts.items()})
+                if args.verbose:
+                    msg = ' '.join(f'{k}={float(v):.4f}'
+                                   for k, v in parts.items())
+                    print(f'epoch {epoch} step {step} {msg}')
+                if args.val_every and step % args.val_every == 0:
+                    miou = val_miou()
+                    logger.log(step, val_miou=miou)
+                    print(f'step {step} val miou {miou:.5f}')
+            checkpoint.save_checkpoint(ckpt_root, step,
+                                       trainer.state_dict())
+    print(f'trained {run_id} for {step} steps')
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     common.add_common_args(p)
@@ -120,15 +237,13 @@ def main(argv=None):
     p.add_argument('--profile_dir', default=None,
                    help='profiler trace output dir')
     args = p.parse_args(argv)
-    if args.task == 'train':
-        raise NotImplementedError(
-            'SEC/DSRG training is not ported yet (ROADMAP queue 1 item 5); '
-            'only --task predict runs')
 
     spec = registry.get(args.dataset)
     n_cls = spec.n_seg_classes
     size = 321 if not args.img_size else args.img_size  # model.py:34
     sweep = SWEEP_DEFAULTS.get((args.dataset, args.method), (0.2, 8))
+    if not args.epochs:
+        args.epochs = sweep[1]
     if args.threshold is None:
         args.threshold = sweep[0]
     run_id = f'{args.method}_{args.dataset}_{args.model}'
@@ -136,20 +251,34 @@ def main(argv=None):
         run_id += f'_{args.threshold}'
     ckpt_root = os.path.join(args.wsss_model_root, run_id)
 
-    predictor = SECDSRGPredictor.random(args.method, n_cls, seed=0,
-                                        device=args.device)
+    if args.task == 'train':
+        trainer = SECDSRGTrainer(args.method, n_cls,
+                                 base_lr=args.lr, accum_num=args.accum_num,
+                                 device=args.device)
+        trainer.init(torch.Generator().manual_seed(0))
+        net = trainer.net
+    else:
+        predictor = SECDSRGPredictor.random(args.method, n_cls, seed=0,
+                                            device=args.device)
+        net = predictor.net
     if args.init_npy:
         from wsss_tpu_torch.io.flax_bridge import (deeplab_params,
                                                    load_flax_deeplab)
         from wsss_tpu_torch.io.legacy import load_deeplab_init_npy
-        load_flax_deeplab(predictor.net, load_deeplab_init_npy(
-            args.init_npy, deeplab_params(predictor.net)))
+        load_flax_deeplab(net, load_deeplab_init_npy(
+            args.init_npy, deeplab_params(net)))
         print(f'initialized trunk+head from {args.init_npy}')
     if checkpoint.latest_step(ckpt_root) is not None:
         state, st = checkpoint.restore_checkpoint(
-            ckpt_root, map_location=predictor.device)
-        predictor.net.load_state_dict(state['params'])
+            ckpt_root, map_location=next(net.parameters()).device)
+        if args.task == 'train':
+            trainer.load_state_dict(state)
+        else:
+            net.load_state_dict(state['params'])
         print(f'resumed {run_id} from step {st}')
+    if args.task == 'train':
+        train(args, trainer, spec, run_id, size, ckpt_root)
+        return
 
     # --- predict: FCN forward -> upscale -> test-time CRF -> eval ------
     ds, _ = common.get_batches(args, args.eval_split, size, with_gt=True)

@@ -5,14 +5,22 @@ M7 / X1.7 and the M1-M6 variants (counterparts of
 Inside a stage each conv is 3x3 with padding 1, then ReLU, then
 BatchNorm (eps 1e-3) where the model has it — the reference's deliberate
 conv -> ReLU -> BN order.  'M' is a 2x2 max-pool with floor (321 -> 160
--> 80 -> 40), 'D' a dropout that is off in eval.  VGG16 pools its final
-map by its mean (GAP head), M7 and the M variants by their max.
+-> 80 -> 40), 'D' a dropout of rate 0.5.  VGG16 pools its final map by
+its mean (GAP head), M7 and the M variants by their max, then drop out.
+
+Train mode (``model.train()``) is flax's ``train=True``: BatchNorm
+normalizes with the batch's biased variance and moves its running
+statistics by ``ra = 0.99 ra + 0.01 stat`` with that same biased
+variance (``torch.nn.BatchNorm2d`` would keep the unbiased one), and each
+dropout draws its mask through ``dropout`` from the ``generator`` the
+forward was given (``torch.nn.Dropout`` takes none).  Eval mode uses the
+running statistics and drops nothing.
 
 Public layout is the JAX package's: ``forward`` takes NHWC images and
 returns ``(scores [B, C], feats [B, h, w, F])``; the convolutions run on
 the NCHW view of the same memory (channels-last strides).
 
-Compute dtype (``dtype=``, inference only): parameters stay float32 and
+Compute dtype (``dtype=``): parameters stay float32 and
 are cast where they are used, as flax's ``dtype`` does.  Under bfloat16
 each conv and the head run on bf16 inputs, weights and biases (flax
 rounds the product to bf16 before its bias add, the library may add the
@@ -66,6 +74,54 @@ def infer_dtype() -> torch.dtype:
     return torch.float32
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """flax's ``nn.Dropout(rate)`` in train mode: keep each element with
+    probability 1 - rate and scale it by 1 / (1 - rate), zero the rest.
+    The mask is drawn from ``generator``, which must live on x's device
+    (flax's masks come from another stream: same distribution, other
+    masks)."""
+    if generator is None:
+        raise ValueError('dropout in train mode needs a torch.Generator')
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
+class Dropout(nn.Module):
+    """Identity in eval mode, ``dropout`` in train mode (looked up at call
+    time, so one replacement reaches every model)."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        if not self.training:
+            return x
+        return dropout(x, self.rate, generator)
+
+
+def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """``bn`` on NCHW ``x``; in train mode flax's BatchNorm(momentum 0.99):
+    batch mean and biased variance (E[x^2] - E[x]^2, flax's fast variance,
+    floored at 0) in at least float32, the running statistics moved towards
+    them, the result in x's dtype."""
+    if not bn.training:
+        return bn(x)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xf.mean((0, 2, 3))
+    var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(0.99).add_(0.01 * mean)
+        bn.running_var.mul_(0.99).add_(0.01 * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] \
+        + bn.bias[:, None, None]
+    return y.to(x.dtype)
+
+
 class VGGStage(nn.Module):
     """One cfg stage on NCHW tensors: conv -> ReLU (-> BN) per width,
     'M' pools, 'D' drops.  ``convs[i]`` / ``bns[i]`` are the flax stage's
@@ -89,7 +145,7 @@ class VGGStage(nn.Module):
             ch = int(v)
         self.out_ch = ch
         self.pool = nn.MaxPool2d(2, 2)
-        self.drop = nn.Dropout(0.5)
+        self.drop = Dropout(0.5)
 
     def _conv(self, i: int, x: torch.Tensor) -> torch.Tensor:
         conv = self.convs[i]
@@ -99,22 +155,22 @@ class VGGStage(nn.Module):
         return F.conv2d(x.to(dt), conv.weight.to(dt), conv.bias.to(dt),
                         padding=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         i = 0
         for v in self.cfg:
             if v == 'M':
                 x = self.pool(x)
             elif v == 'D':
-                x = self.drop(x)
+                x = self.drop(x, generator)
             else:
                 x = torch.relu(self._conv(i, x))
                 if len(self.bns):
-                    # on bf16 activations as flax's BatchNorm(dtype=bf16)
-                    # in eval: its statistics, scale and bias are float32,
-                    # so x - mean promotes and the normalization runs in
-                    # float32, cast to bf16 once at the end; the float32
-                    # module on a bf16 input computes the same way
-                    x = self.bns[i](x)
+                    # on bf16 activations as flax's BatchNorm(dtype=bf16):
+                    # its statistics, scale and bias are float32, so the
+                    # normalization runs in float32, cast to bf16 once at
+                    # the end; the float32 module on a bf16 input computes
+                    # the same way in eval
+                    x = batch_norm(self.bns[i], x)
                 i += 1
         return x
 
@@ -128,15 +184,17 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class _Classifier(nn.Module):
-    """Shared forward of the multi-label classifiers: trunk -> pool ->
-    Linear -> sigmoid."""
+    """Shared forward of the multi-label classifiers: trunk -> pool
+    (-> dropout) -> Linear -> sigmoid.  ``generator`` feeds the dropouts
+    in train mode."""
     global_max = True
 
     def __init__(self, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.drop = None            # the head's Dropout, where it has one
 
-    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         raise NotImplementedError
 
     def pool_feats(self, feats: torch.Tensor) -> torch.Tensor:
@@ -145,24 +203,33 @@ class _Classifier(nn.Module):
             return torch.amax(feats, dim=(1, 2))
         return torch.mean(feats, dim=(1, 2))
 
-    def features(self, x: torch.Tensor) -> torch.Tensor:
+    def features(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         """NHWC images -> final conv activations [B, h, w, F] (NHWC), in
         the compute dtype."""
-        return _nhwc(self.trunk(_nchw(x).to(self.dtype)))
+        return _nhwc(self.trunk(_nchw(x).to(self.dtype), generator))
 
-    def head_logits(self, feats: torch.Tensor) -> torch.Tensor:
+    def head_logits(self, feats: torch.Tensor,
+                    generator=None) -> torch.Tensor:
         """Pre-sigmoid logits [B, C] of final activations, in the compute
         dtype (the reference's y_c = layers[-2].output)."""
-        p = self.drop(self.pool_feats(feats))
+        p = self.pool_feats(feats)
+        if self.drop is not None:
+            p = self.drop(p, generator)
         if self.dtype == torch.float32:
             return self.head(p)
         dt = self.dtype
         return F.linear(p.to(dt), self.head.weight.to(dt),
                         self.head.bias.to(dt))
 
-    def forward(self, x: torch.Tensor):
-        feats = self.features(x)
-        logits = self.head_logits(feats).to(torch.float32)
+    def logits(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        """Float32 pre-sigmoid logits [B, C] of NHWC images (flax's
+        ``method='logits'``, which the trainer differentiates)."""
+        return self.head_logits(self.features(x, generator),
+                                generator).to(torch.float32)
+
+    def forward(self, x: torch.Tensor, generator=None):
+        feats = self.features(x, generator)
+        logits = self.head_logits(feats, generator).to(torch.float32)
         return torch.sigmoid(logits), feats
 
 
@@ -179,10 +246,10 @@ class VGG16Backbone(nn.Module):
         self.stages = nn.ModuleList(stages)
         self.out_ch = ch
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, generator=None):
         feats = []
         for s in self.stages:
-            x = s(x)
+            x = s(x, generator)
             feats.append(x)
         return feats
 
@@ -195,11 +262,10 @@ class VGG16Classifier(_Classifier):
                  dtype=torch.float32):
         super().__init__(dtype)
         self.backbone = VGG16Backbone(batchnorm, dtype)
-        self.drop = nn.Identity()
         self.head = nn.Linear(self.backbone.out_ch, num_classes)
 
-    def trunk(self, x):
-        return self.backbone(x)[-1]
+    def trunk(self, x, generator=None):
+        return self.backbone(x, generator)[-1]
 
 
 class M7Classifier(_Classifier):
@@ -213,11 +279,13 @@ class M7Classifier(_Classifier):
         self.layer2 = VGGStage(M7_CFG[1], self.layer1.out_ch, dtype=dtype)
         self.layer3_p1 = VGGStage(M7_CFG[2], self.layer2.out_ch,
                                   dtype=dtype)
-        self.drop = nn.Dropout(0.5)
+        self.drop = Dropout(0.5)
         self.head = nn.Linear(self.layer3_p1.out_ch, num_classes)
 
-    def trunk(self, x):
-        return self.layer3_p1(self.layer2(self.layer1(x)))
+    def trunk(self, x, generator=None):
+        for layer in (self.layer1, self.layer2, self.layer3_p1):
+            x = layer(x, generator)
+        return x
 
 
 class MVariantClassifier(_Classifier):
@@ -232,12 +300,12 @@ class MVariantClassifier(_Classifier):
             stages.append(VGGStage(c, ch, dtype=dtype))
             ch = stages[-1].out_ch
         self.stages = nn.ModuleList(stages)
-        self.drop = nn.Dropout(0.5)
+        self.drop = Dropout(0.5)
         self.head = nn.Linear(ch, num_classes)
 
-    def trunk(self, x):
+    def trunk(self, x, generator=None):
         for s in self.stages:
-            x = s(x)
+            x = s(x, generator)
         return x
 
 

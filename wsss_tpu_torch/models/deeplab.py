@@ -14,9 +14,10 @@ the max; the average pool pads zeros and divides by the full window of 9
 at the border too; a dilated 3x3 convolution pads by its dilation.
 
 Public layout is the JAX package's: NHWC in, NHWC float32 logits out;
-the convolutions run on the NCHW view of the same memory.  Inference
-only so far: the dropouts are kept as modules (identity in eval) so
-that training can come later.
+the convolutions run on the NCHW view of the same memory.  In train mode
+(``net.train()``) drop6 and drop7 draw their masks from the
+``generator`` the forward is given (``backbones.Dropout``); in eval mode
+they are the identity.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from wsss_tpu_torch.models.backbones import Dropout
 
 MIN_PROB = 1e-4  # SEC.py:40
 
@@ -82,12 +85,12 @@ class LargeFOVHead(nn.Module):
                              dilation=dilation)
         self.fc7 = nn.Conv2d(1024, 1024, 1)
         self.fc8 = nn.Conv2d(1024, num_classes, 1)
-        self.drop6 = nn.Dropout(0.5)
-        self.drop7 = nn.Dropout(0.5)
+        self.drop6 = Dropout(0.5)
+        self.drop7 = Dropout(0.5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.drop6(torch.relu(self.fc6(x)))
-        x = self.drop7(torch.relu(self.fc7(x)))
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        x = self.drop6(torch.relu(self.fc6(x)), generator)
+        x = self.drop7(torch.relu(self.fc7(x)), generator)
         return self.fc8(x)
 
 
@@ -99,8 +102,8 @@ class SECNet(nn.Module):
         self.trunk = DeepLabTrunk()
         self.head = LargeFOVHead(num_classes, in_ch=self.trunk.out_ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.head(self.trunk(x.permute(0, 3, 1, 2)))
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        x = self.head(self.trunk(x.permute(0, 3, 1, 2)), generator)
         return x.permute(0, 2, 3, 1).to(torch.float32)
 
 
@@ -117,11 +120,11 @@ class DSRGNet(nn.Module):
             LargeFOVHead(num_classes, dilation=r, in_ch=self.trunk.out_ch)
             for r in self.rates)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         x = self.trunk(x.permute(0, 3, 1, 2))
         out = 0.
         for branch in self.branches:
-            out = out + branch(x)
+            out = out + branch(x, generator)
         return out.permute(0, 2, 3, 1).to(torch.float32)
 
 
