@@ -116,7 +116,31 @@ Phases, in order; any failure exits non-zero and prints no result:
                from that checkpoint (exactly 44 launches of each v2
                kernel); it stands in for the ROC, .h5 and heatmap writers
                where matplotlib or h5py is missing and says so;
- 12. result  — one JSON line of kernels, then the last line
+ 12. irn     — IRNet's inference stages (03b), random weights, full
+               width: irn_voc (VGG16, 4 images of 375x500 with tags:
+               make_cam_batch at the scales (1.0, 0.5, 1.5, 2.0),
+               eval_cam_pred, cam_to_ir_label at IRN_LABEL with the
+               flat_color_blur launches the CRF structures predict and its
+               labels against the plain versions, an IRNet vgg16 with the
+               classifier's trunk transplanted and edge inference on the
+               320 top-left crop, make_sem_seg at IRN_TUNED (0.5, 8): img/s
+               and peak memory a stage, the walk's n, ms, TFLOP/s against
+               its float32 bound and its share of make_sem_seg);
+               irn_card_vs_cpu (one 161^2 image through the chain on the
+               card and on the CPU: cams within IRN_CAM_TOL, ir-labels and
+               sem-seg labels at IRN_IR_FLOOR / IRN_SEM_FLOOR); cli_irn
+               (cli.irn.main pass by pass on 4 synthetic VOC images from a
+               port IRNet checkpoint in a temporary directory: img/s a
+               pass, launches as predicted, eval_sem_seg's mIoU equal to
+               the phase's own confusion of the written PNGs, --passes
+               train_irn refused before writing); irn_adp (one ADP-morph
+               image at its native 1088^2, X1.7: make_cam; cam_to_ir_label
+               raises there as the reference's does (IRN_LABEL has no
+               tractable structure at that size); an IRNet m7 and
+               make_sem_seg at IRN_TUNED (0.5, 1), whose
+               walk at n = 73 984 holds two 21.9 GB matrices: its time,
+               TFLOP/s and the peak memory);
+ 13. result  — one JSON line of kernels, then the last line
                {"ok": true, "device": {...}}.
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  Needs no network and imports nothing of JAX.
@@ -2357,6 +2381,489 @@ def phase_train(torch):
     return paths
 
 
+# --- 03b: IRNet's inference stages ------------------------------------------
+# The irn phase's inputs: 4 VOC-sized images; one ADP image at its native
+# size (the walk's n = (1088/4)^2 = 73 984: a 21.9 GB transition matrix,
+# two of them at the walk's peak); one small image through the whole
+# chain on the card and on the CPU; 4 synthetic images through the CLI.
+IRN_VOC_N, IRN_VOC_HW = 4, (375, 500)
+IRN_ADP_SIZE = 1088
+IRN_SMALL = 161
+IRN_CLI_N = 4
+IRN_PASSES = ('make_cam', 'eval_cam', 'cam_to_ir_label', 'make_sem_seg',
+              'eval_sem_seg')
+IRN_CAM_TOL = 1e-4          # card against CPU, cam and high_res maps
+IRN_IR_FLOOR = 0.99         # ir-labels: the card's scatter grid against
+#                             the CPU's route (PERF.md §6: 0.9954 apart)
+IRN_SEM_FLOOR = 0.999       # sem-seg labels: float32 walk, then argmax
+
+
+def timed(torch, fn):
+    """(fn(), host seconds), the clock ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+class WalkClock:
+    """Stands in for methods.irnet.propagate_to_edge while installed:
+    each walk's host seconds (synchronized around it), its n and
+    exp_times."""
+
+    def __init__(self, torch, irnet):
+        self.torch, self.irnet = torch, irnet
+        self.fn = irnet.propagate_to_edge
+        self.walks = []
+
+    def __enter__(self):
+        self.irnet.propagate_to_edge = self
+        return self
+
+    def __exit__(self, *exc):
+        self.irnet.propagate_to_edge = self.fn
+
+    def __call__(self, cam, edge, **kw):
+        out, dt = timed(self.torch, lambda: self.fn(cam, edge, **kw))
+        self.walks.append((dt, cam.shape[1] * cam.shape[2], kw['exp_times']))
+        return out
+
+    def report(self, label, smi):
+        """Print and return (seconds, TFLOP/s, share of the f32 bound) of
+        the walks: 2 n^3 flops a squaring at F32_FLOPS."""
+        secs = sum(w[0] for w in self.walks)
+        flops = sum(2.0 * n ** 3 * e for _, n, e in self.walks)
+        bound_s = flops / F32_FLOPS
+        ns = sorted({n for _, n, _ in self.walks})
+        print(f'[{label}] walk: {len(self.walks)} walks, n {ns}, exp_times '
+              f'{sorted({e for _, _, e in self.walks})}: '
+              f'{1e3 * secs / len(self.walks):.1f} ms a walk, '
+              f'{flops / secs / 1e12:.2f} TFLOP/s ({flops:.4g} flops), '
+              f'bound {1e3 * bound_s / len(self.walks):.1f} ms a walk at '
+              f'{F32_FLOPS / 1e12:.0f} TFLOP/s f32 = {bound_s / secs:.3f} of '
+              f'it ({smi})')
+        return secs, flops / secs / 1e12, bound_s / secs
+
+
+def irn_k11_launches(cfg, calls):
+    """flat_color_blur launches that crf_label_refine makes over calls
+    [(hw, n_labels)]: one a filter (the iterations and the C 1
+    normalizer) where the structure is the scatter grid, else none."""
+    from wsss_tpu_torch.ops.crf import meanfield as mf
+    return sum(cfg.iterations + 1 for hw, c in calls
+               if mf.bilateral_structure(hw, cfg.bi_sxy, cfg.bi_srgb)
+               == 'grid' and not mf._mxu_ok(hw, c, cfg))
+
+
+def ir_label_calls(dataset, dicts, hws):
+    """(hw, n_labels) of each crf_label_refine call cam_to_ir_label
+    makes: two an image on VOC, one on ADP (none for empty keys)."""
+    per = 2 if dataset == 'VOC2012' else 1
+    return [(hw, len(d['keys']) + 1) for d, hw in zip(dicts, hws)
+            if len(d['keys'])] * per
+
+
+def irn_images(torch, seed, n, hw, n_fg, n_tags=2):
+    """Seeded uint8 host images [n,H,W,3] of flat-coloured blocks with
+    noise (structured_case) and tags [n, n_fg] with n_tags classes set."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    imgs, _ = structured_case(torch, gen, n, hw, 8)
+    rng = np.random.default_rng(seed)
+    tags = np.zeros((n, n_fg), np.float32)
+    for t in tags:
+        t[rng.choice(n_fg, n_tags, replace=False)] = 1
+    return imgs.round().to(torch.uint8).cpu().numpy(), tags
+
+
+def irn_net(torch, backbone, clf, seed):
+    """An IRNet on the card: heads from `seed`, trunk transplanted from
+    the classifier `clf`."""
+    from wsss_tpu_torch.models.backbones import init_random
+    from wsss_tpu_torch.models.irn import IRNet
+    from wsss_tpu_torch.models.transplant import transplant_classifier_trunk
+    net = init_random(IRNet(backbone), torch.Generator().manual_seed(seed))
+    transplant_classifier_trunk(clf, net, backbone)
+    return net.to('cuda').eval()
+
+
+def irn_edges(torch, net, spec, imgs, crop, device='cuda'):
+    """edge_displacement_inference on the top-left `crop` of each image,
+    disp_mean 0 (the CLI's make_sem_seg input)."""
+    from wsss_tpu_torch.data import augment
+    from wsss_tpu_torch.methods.gradcam_cues import _normalizer
+    from wsss_tpu_torch.models.irn import edge_displacement_inference
+    norm = _normalizer(spec.norm_irn, device)
+    out = []
+    for img in imgs:
+        x = torch.as_tensor(augment.top_left_crop(img, crop, 0)[None]).to(
+            device, torch.float32)
+        out.append(edge_displacement_inference(net, norm(x), [0.0, 0.0])[0])
+    return out
+
+
+def check_sem(sem, keys_pad, hw, label):
+    check(sem.shape == tuple(hw) and sem.dtype == np.uint8,
+          f'{label}: sem-seg labels {sem.shape} {sem.dtype}')
+    check(set(np.unique(sem).tolist()) <= set(np.asarray(keys_pad).tolist()),
+          f'{label}: sem-seg labels outside the keys')
+
+
+def phase_irn_voc(torch, smi):
+    """VOC2012 VGG16 through the five stages on 4 images of 375x500."""
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.methods import irnet
+    from wsss_tpu_torch.methods.gradcam_cues import _ClassifierHandle
+    from wsss_tpu_torch.ops.crf import config as crf_config
+    spec = registry.get('VOC2012')
+    conf_fg, exp_times = crf_config.IRN_TUNED[('VOC2012', 'VGG16')]
+    cfg = crf_config.IRN_LABEL
+    handle = _ClassifierHandle.random('VGG16', spec.n_fg_classes, SIZE,
+                                      seed=0)
+    ci = irnet.CAMInference(handle, spec, 'VGG16')
+    check(ci.scales == (1.0, 0.5, 1.5, 2.0), f'scales {ci.scales}')
+    net = irn_net(torch, 'vgg16', handle.model, seed=1)
+    crop = SIZE // 16 * 16
+    imgs, tags = irn_images(torch, 11, IRN_VOC_N, IRN_VOC_HW,
+                            spec.n_fg_classes)
+    hws = [IRN_VOC_HW] * IRN_VOC_N
+
+    def chain(sl):
+        dicts = ci.make_cam_batch(imgs[sl], tags[sl])
+        ir = [irnet.cam_to_ir_label(i, d, 'VOC2012', conf_fg)
+              for i, d in zip(imgs[sl], dicts)]
+        edges = irn_edges(torch, net, spec, imgs[sl], crop)
+        return [irnet.make_sem_seg(e, d, 'VOC2012', IRN_VOC_HW,
+                                   exp_times=exp_times)
+                for e, d in zip(edges, dicts)]
+    timed(torch, lambda: chain(slice(0, 1)))                  # warm-up
+    stage, peak = {}, {}
+
+    def stage_run(name, fn):
+        torch.cuda.reset_peak_memory_stats()
+        out, stage[name] = timed(torch, fn)
+        peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out
+    K.reset_launch_counts()
+    dicts = stage_run('make_cam', lambda: ci.make_cam_batch(imgs, tags))
+    after_cam = dict(K.LAUNCHES)
+    preds = stage_run('eval_cam', lambda: [
+        irnet.eval_cam_pred(d, 'VOC2012', 0.15) for d in dicts])
+    ir = stage_run('cam_to_ir_label', lambda: [
+        irnet.cam_to_ir_label(i, d, 'VOC2012', conf_fg)
+        for i, d in zip(imgs, dicts)])
+    after_ir = dict(K.LAUNCHES)
+    edges = stage_run('edge', lambda: irn_edges(torch, net, spec, imgs,
+                                                crop))
+    with WalkClock(torch, irnet) as clock:
+        sem = stage_run('make_sem_seg', lambda: [
+            irnet.make_sem_seg(e, d, 'VOC2012', IRN_VOC_HW,
+                               exp_times=exp_times)
+            for e, d in zip(edges, dicts)])
+    launches = dict(K.LAUNCHES)
+    check_launches(launches, SCATTER, 'irn_voc')
+    check(not any(after_cam.values()), f'make_cam launched {after_cam}')
+    want = irn_k11_launches(cfg, ir_label_calls('VOC2012', dicts, hws))
+    check(after_ir['flat_color_blur'] == launches['flat_color_blur'] == want,
+          f'irn_voc flat_color_blur launches {launches["flat_color_blur"]}'
+          f' (after cam_to_ir_label {after_ir["flat_color_blur"]}), the '
+          f'structures predict {want}')
+    n = IRN_VOC_N
+    for name, dt in stage.items():
+        print(f'[irn_voc] {name}: {n} images of {IRN_VOC_HW} in {dt:.3f} s = '
+              f'{n / dt:.2f} img/s, peak memory {peak[name]:.2f} GiB ({smi})')
+    walk_s, tflops, share = clock.report('irn_voc', smi)
+    print(f'[irn_voc] the walk is {walk_s / stage["make_sem_seg"]:.3f} of '
+          f'make_sem_seg ({1e3 * walk_s / n:.1f} of '
+          f'{1e3 * stage["make_sem_seg"] / n:.1f} ms an image; exp_times '
+          f'{exp_times}); cam_to_ir_label '
+          f'{1e3 * stage["cam_to_ir_label"] / n:.1f} ms an image with '
+          f'{want // n} flat_color_blur launches an image ({smi})')
+    for d, p, lab, s, t in zip(dicts, preds, ir, sem, tags):
+        keys = np.where(t > 0.5)[0]
+        check(np.array_equal(d['keys'], keys), f'keys {d["keys"]} {keys}')
+        sh = irnet.get_strided_size(IRN_VOC_HW, 4)
+        check(d['cam'].shape == (len(keys),) + sh
+              and d['high_res'].shape == (len(keys),) + IRN_VOC_HW
+              and np.isfinite(d['high_res']).all()
+              and 0 <= float(d['high_res'].min())
+              and float(d['high_res'].max()) <= 1,
+              f'cam dict {d["cam"].shape} {d["high_res"].shape}')
+        keys_pad = np.concatenate([[0], keys + 1])
+        check(p.shape == IRN_VOC_HW and set(np.unique(p)) <= set(keys_pad),
+              'eval_cam_pred labels')
+        check(set(np.unique(lab).tolist()) <= set(keys_pad.tolist()) | {255},
+              'ir-labels outside the keys')
+        check_sem(s, keys_pad, IRN_VOC_HW, 'irn_voc')
+    with K.plain_versions():
+        plain = [irnet.cam_to_ir_label(i, d, 'VOC2012', conf_fg)
+                 for i, d in zip(imgs, dicts)]
+    agree = float(np.mean([(a == b).mean() for a, b in zip(ir, plain)]))
+    print(f'[irn_voc] ir-labels, kernels vs plain versions: {agree:.6f}; '
+          f'ignored {np.mean([(x == 255).mean() for x in ir]):.4f}, '
+          f'background {np.mean([(x == 0).mean() for x in ir]):.4f} of the '
+          f'pixels')
+    check(agree >= 0.999, f'irn_voc ir-labels agree {agree} < 0.999')
+    # K11 at this path's own shape: the first image's grid at C = 1 +
+    # |keys| (counted apart from the path's launches, read above)
+    from wsss_tpu_torch.ops.crf.meanfield import BilateralGrid
+    c = len(dicts[0]['keys']) + 1
+    bg = BilateralGrid(torch.as_tensor(imgs[:1]).to('cuda', torch.float32),
+                       cfg.bi_sxy, cfg.bi_srgb)
+    gen = torch.Generator(device='cuda').manual_seed(14)
+    x = torch.rand((1,) + IRN_VOC_HW + (c,), generator=gen, device='cuda')
+    k11 = hold_flat_blur(torch, bg, x, f'irn_voc grid {bg.gshape} C={c}',
+                         'split', timed=True)
+    ips = {k: n / v for k, v in stage.items()}
+    cases = {name: {f'irn_voc_c{c}': r} for name, r in k11.items()}
+    return {'irn_voc': launches}, handle, net, ips, cases
+
+
+def phase_irn_adp(torch, smi):
+    """One ADP-morph image at its native 1088^2 with X1.7: make_cam,
+    cam_to_ir_label (which raises there, as the reference's does),
+    make_sem_seg with an M7 IRNet: the walk at n = 73 984 must fit the
+    card."""
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.methods import irnet
+    from wsss_tpu_torch.methods.gradcam_cues import _ClassifierHandle
+    from wsss_tpu_torch.ops.crf import config as crf_config
+    from wsss_tpu_torch.ops.crf import meanfield as mf
+    spec = registry.get('ADP-morph')
+    conf_fg, exp_times = crf_config.IRN_TUNED[('ADP-morph', 'X1.7')]
+    cfg = crf_config.IRN_LABEL
+    hw = (IRN_ADP_SIZE, IRN_ADP_SIZE)
+    handle = _ClassifierHandle.random('X1.7', 51, spec.clf_size_m7, seed=2)
+    ci = irnet.CAMInference(handle, spec, 'X1.7', adp_htt='morph')
+    net = irn_net(torch, 'm7', handle.model, seed=3)
+    imgs, tags = irn_images(torch, 12, 1, hw, spec.n_fg_classes, n_tags=3)
+    torch.cuda.empty_cache()
+    stage, peak = {}, {}
+
+    def stage_run(name, fn):
+        torch.cuda.reset_peak_memory_stats()
+        out, stage[name] = timed(torch, fn)
+        peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out
+    K.reset_launch_counts()
+    d = stage_run('make_cam', lambda: ci.make_cam(imgs[0], tags[0]))
+    structure = mf.bilateral_structure(hw, cfg.bi_sxy, cfg.bi_srgb)
+    c = len(d['keys']) + 1
+    grid_cells = int(np.prod(mf._grid_shape(hw, cfg.bi_sxy, cfg.bi_srgb)))
+    # At 1088^2 IRN_LABEL has no structure, in the reference as here:
+    # the scatter grid would pass meanfield's 80 M-cell limit and the
+    # window has 70 686 offsets (> 40 000), so make_bilateral raises
+    try:
+        irnet.cam_to_ir_label(imgs[0], d, 'ADP-morph', conf_fg)
+        check(False, 'cam_to_ir_label ran at ADP\'s native size, where '
+              'the reference raises')
+    except ValueError as e:
+        check('intractable' in str(e), f'cam_to_ir_label raised {e}')
+        print(f'[irn_adp] cam_to_ir_label at {hw} raises, as the '
+              f'reference does: {e}')
+    (edge,) = stage_run('edge', lambda: irn_edges(
+        torch, net, spec, imgs, spec.clf_size_m7 // 16 * 16))
+    torch.cuda.empty_cache()
+    with WalkClock(torch, irnet) as clock:
+        sem = stage_run('make_sem_seg', lambda: irnet.make_sem_seg(
+            edge, d, 'ADP-morph', hw, exp_times=exp_times))
+    launches = dict(K.LAUNCHES)
+    want = irn_k11_launches(cfg, [(hw, c)])
+    check_launches(launches, SCATTER if want else (), 'irn_adp')
+    check(launches['flat_color_blur'] == want,
+          f'irn_adp flat_color_blur launches {launches["flat_color_blur"]},'
+          f' the structure ({structure}) predicts {want}')
+    for name, dt in stage.items():
+        print(f'[irn_adp] {name}: 1 image of {hw} in {dt:.3f} s, peak '
+              f'memory {peak[name]:.2f} GiB ({smi})')
+    n = clock.walks[0][1]
+    check(n == (IRN_ADP_SIZE // 4) ** 2, f'walk n {n}')
+    clock.report('irn_adp', smi)
+    print(f'[irn_adp] the walk holds two [n, n] float32 matrices: '
+          f'{2 * n * n * 4 / 1e9:.2f} GB; make_sem_seg peaked at '
+          f'{peak["make_sem_seg"]:.2f} GiB of the card\'s '
+          f'{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}'
+          f' GiB ({smi})')
+    print(f'[irn_adp] the {structure} structure at {hw}: the scatter '
+          f'grid would hold {grid_cells} cells x C {c} = '
+          f'{grid_cells * c * 4 / 1e9:.2f} GB (meanfield routes to it up to '
+          f'80 M cells); flat_color_blur launches {want}')
+    keys = d['keys']
+    check(keys[0] == 0 and len(keys) == 4, f'ADP keys {keys}')
+    check(d['high_res'].shape == (len(keys),) + hw
+          and np.isfinite(d['high_res']).all(), 'ADP cam dict')
+    check_sem(sem, keys, hw, 'irn_adp')
+    print(f'[irn_adp] sem-seg labels {np.unique(sem).tolist()}')
+    return {'irn_adp': launches}
+
+
+def phase_irn_card_vs_cpu(torch, smi, handle, net):
+    """One small image through the whole chain on the card and on the
+    CPU, the same weights."""
+    import copy
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.methods import irnet
+    from wsss_tpu_torch.methods.gradcam_cues import _ClassifierHandle
+    from wsss_tpu_torch.ops.crf import config as crf_config
+    from wsss_tpu_torch.ops.crf import meanfield as mf
+    spec = registry.get('VOC2012')
+    conf_fg, exp_times = crf_config.IRN_TUNED[('VOC2012', 'VGG16')]
+    hw = (IRN_SMALL, IRN_SMALL)
+    imgs, tags = irn_images(torch, 13, 1, hw, spec.n_fg_classes)
+    img, tag = imgs[0], tags[0]
+    crop = SIZE // 16 * 16
+
+    def chain(h, n, device):
+        ci = irnet.CAMInference(h, spec, 'VGG16', device=device)
+        d = ci.make_cam(img, tag)
+        ir = irnet.cam_to_ir_label(img, d, 'VOC2012', conf_fg, device=device)
+        (edge,) = irn_edges(torch, n, spec, imgs, crop, device=device)
+        sem = irnet.make_sem_seg(edge, d, 'VOC2012', hw, exp_times=exp_times,
+                                 device=device)
+        return d, ir, sem
+    K.reset_launch_counts()
+    (d_c, ir_c, sem_c), dt_c = timed(torch, lambda: chain(handle, net,
+                                                          'cuda'))
+    launches = dict(K.LAUNCHES)
+    h_cpu = _ClassifierHandle(copy.deepcopy(handle.model).cpu(),
+                              handle.thresholds.cpu().numpy(), SIZE,
+                              device='cpu')
+    # the CPU side is the port's own plain path: the scatter grid, not the
+    # host's permutohedral library (which irn_label may have built)
+    native_was = mf._NATIVE_DISABLED
+    mf._NATIVE_DISABLED = True
+    try:
+        t0 = time.perf_counter()
+        d_h, ir_h, sem_h = chain(h_cpu, copy.deepcopy(net).cpu(), 'cpu')
+        dt_h = time.perf_counter() - t0
+    finally:
+        mf._NATIVE_DISABLED = native_was
+    if mf._fine_color_native_ok(hw, crf_config.IRN_LABEL):
+        nat = irnet.cam_to_ir_label(img, d_h, 'VOC2012', conf_fg,
+                                    device='cpu')
+        print(f'[irn_card_vs_cpu] for the record, the CPU with the host\'s '
+              f'permutohedral library (the native route): ir-labels agree '
+              f'{float((nat == ir_c).mean()):.6f} with the card\'s')
+    want = irn_k11_launches(crf_config.IRN_LABEL,
+                            ir_label_calls('VOC2012', [d_c], [hw]))
+    check_launches(launches, SCATTER, 'irn_card_vs_cpu')
+    check(launches['flat_color_blur'] == want,
+          f'irn_card_vs_cpu launches {launches}, expected {want}')
+    check(np.array_equal(d_c['keys'], d_h['keys']),
+          f'keys {d_c["keys"]} vs {d_h["keys"]}')
+    errs = {k: float(np.abs(d_c[k] - d_h[k]).max())
+            for k in ('cam', 'high_res')}
+    ir_agree = float((ir_c == ir_h).mean())
+    sem_agree = float((sem_c == sem_h).mean())
+    print(f'[irn_card_vs_cpu] one {hw} image through the chain: card '
+          f'{dt_c:.3f} s, CPU {dt_h:.3f} s; cam max |diff| {errs["cam"]:.3e},'
+          f' high_res {errs["high_res"]:.3e} (tolerance {IRN_CAM_TOL}); '
+          f'ir-labels agree {ir_agree:.6f} (floor {IRN_IR_FLOOR}), sem-seg '
+          f'{sem_agree:.6f} (floor {IRN_SEM_FLOOR}); labels '
+          f'{np.unique(sem_c).tolist()} ({smi})')
+    check(max(errs.values()) <= IRN_CAM_TOL, f'cams differ {errs}')
+    check(ir_agree >= IRN_IR_FLOOR, f'ir-labels agree {ir_agree}')
+    check(sem_agree >= IRN_SEM_FLOOR, f'sem-seg labels agree {sem_agree}')
+    return {'irn_card_vs_cpu': launches}
+
+
+def phase_cli_irn(torch, smi, net, ips):
+    """cli.irn.main over the five passes on SyntheticWSSS VOC2012, in a
+    temporary directory, from a port checkpoint of the irn_voc IRNet."""
+    import os
+    import tempfile
+    from PIL import Image
+    from wsss_tpu_torch.cli import irn as irn_cli
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.data.pipeline import SyntheticWSSS
+    from wsss_tpu_torch.eval import metrics
+    from wsss_tpu_torch.io import artifacts, checkpoint
+    from wsss_tpu_torch.ops.crf import config as crf_config
+    spec = registry.get('VOC2012')
+    n = IRN_CLI_N
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        work = os.path.join(tmp, 'work')
+        run = os.path.join(work, 'IRN_VOC2012_VGG16')
+        base = ['--dataset', 'VOC2012', '--model', 'VGG16', '--img_size',
+                str(SIZE), '--synthetic_n', str(n), '--batchsize',
+                str(BATCH), '--model_root', os.path.join(tmp, 'no_models')]
+        argv = base + ['--work_root', work]
+        refused = os.path.join(tmp, 'refused')
+        try:
+            irn_cli.main(base + ['--work_root', refused, '--passes',
+                                 'train_irn'])
+            check(False, 'cli.irn --passes train_irn did not raise')
+        except NotImplementedError as e:
+            check('item 6b' in str(e) and not os.path.exists(refused),
+                  f'train_irn refused late or without the item: {e}')
+        checkpoint.save_checkpoint(
+            os.path.join(run, 'irn_ckpt'), 0,
+            {'variables': net.state_dict(), 'disp_mean': torch.zeros(2)})
+        for ps in IRN_PASSES:
+            res, text, dt, launches = run_cli(
+                torch, irn_cli.main, argv + ['--passes', ps])
+            if ps == 'cam_to_ir_label':
+                ds = SyntheticWSSS('VOC2012', size=SIZE, n_images=n)
+                hws, dicts = [], []
+                for b in ds.iter_native():
+                    hws.append(b.images.shape[1:3])
+                    dicts.append(artifacts.read_cam_npy(os.path.join(
+                        run, 'cam', b.names[0] + '.npy')))
+                want = irn_k11_launches(crf_config.IRN_LABEL, ir_label_calls(
+                    'VOC2012', dicts, hws))
+                check_launches(launches, SCATTER, 'cli_irn cam_to_ir_label')
+                check(launches['flat_color_blur'] == want,
+                      f'cli_irn cam_to_ir_label launches {launches}, the '
+                      f'structures predict {want}')
+            else:
+                check_launches(launches, (), f'cli_irn {ps}')
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            direct = {'make_cam': 'make_cam', 'cam_to_ir_label':
+                      'cam_to_ir_label', 'make_sem_seg': 'make_sem_seg',
+                      'eval_cam': 'eval_cam'}.get(ps)
+            beside = (f'; direct call on 375x500 in irn_voc '
+                      f'{ips[direct]:.2f} img/s' if direct else '')
+            if ps == 'make_sem_seg':
+                beside += f' (with the edge inference {ips["edge"]:.2f})'
+            print(f'[cli_irn] {ps}: {n} images through cli.irn.main in '
+                  f'{dt:.3f} s = {n / dt:.2f} img/s{beside}; launches '
+                  f'{ {k: v for k, v in launches.items() if v} } ({smi})')
+            if ps == 'eval_sem_seg':
+                miou = res['miou']
+        conf = np.zeros((spec.n_seg_classes,) * 2, np.int64)
+        for b in SyntheticWSSS('VOC2012', size=SIZE,
+                               n_images=n).iter_native(with_gt=True):
+            pred = np.asarray(Image.open(os.path.join(
+                run, 'sem_seg', b.names[0] + '.png'))).astype(np.int32)
+            check(pred.shape == b.gt.shape[1:], 'sem-seg PNG shape')
+            pred[pred == 255] = 0
+            conf = metrics.accumulate_confusion(
+                conf, torch.as_tensor(pred), torch.as_tensor(b.gt[0]),
+                spec.n_seg_classes)
+        own = metrics.iou_from_confusion(conf)[1]
+        print(f'[cli_irn] eval_sem_seg mIoU {miou:.6f}, the phase\'s own '
+              f'confusion of the written PNGs {own:.6f}')
+        check(abs(miou - own) <= 1e-12, 'eval_sem_seg mIoU differs')
+    return {'cli_irn': total}
+
+
+def phase_irn(torch, smi):
+    """The irn phases: ({path: launches}, {kernel: {case: numbers}} of
+    flat_color_blur at irn_voc's own grid)."""
+    paths, handle, net, ips, cases = phase_irn_voc(torch, smi)
+    paths.update(phase_irn_card_vs_cpu(torch, smi, handle, net))
+    paths.update(phase_cli_irn(torch, smi, net, ips))
+    del handle, net
+    torch.cuda.empty_cache()
+    paths.update(phase_irn_adp(torch, smi))
+    return paths, cases
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -2384,6 +2891,11 @@ def main():
     print(f'[time] cli done at {time.perf_counter() - t_start:.0f} s')
     paths.update(phase_train(torch))
     print(f'[time] train done at {time.perf_counter() - t_start:.0f} s')
+    irn_paths, irn_cases = phase_irn(torch, smi)
+    paths.update(irn_paths)
+    for name, cases in irn_cases.items():
+        results[name]['cases'].update(cases)
+    print(f'[time] irn done at {time.perf_counter() - t_start:.0f} s')
     print(f'[time] all paths done at {time.perf_counter() - t_start:.0f} s')
     from wsss_tpu_torch.kernels import build
     sources = build.sources()

@@ -18,7 +18,9 @@ cues path: VOCDeepGlobeCueGenerator, VGG16 fg + bg, batch 8 at 321^2:
 generate_batch on card tensors and run on one host batch), the main
 path's two stages under the bf16 opt-ins (bf16 classifiers, bf16 CRF
 state), and the train steps of chip_smoke.py's train phase (``train``:
-VGG16 classifier, SEC, DSRG, batch 8 at 321^2, one step a call).
+VGG16 classifier, SEC, DSRG, batch 8 at 321^2, one step a call), and
+IRNet's 03b stages on one 375x500 image (``irn``: make_cam, the ir-label
+CRF, the edge inference, make_sem_seg with its random walk).
 ``--only`` picks sections.  Prints per stage: host wall ms per
 call, device kernel ms per call, the device's idle share of the window, the device time by
 kernel group and the top kernels.  The idle share is 1 - (union of the
@@ -283,7 +285,36 @@ def profile_train(torch, gen):
     return out
 
 
-SECTIONS = ('main', 'sec', 'irn_label', 'adp', 'cues', 'train')
+def profile_irn(torch, gen):
+    """IRNet's 03b stages on one 375x500 VOC image (chip_smoke.py's
+    irn_voc, VGG16 seed 0, IRNet heads seed 1): make_cam at the four
+    scales, cam_to_ir_label, the edge inference and make_sem_seg (the
+    walk, n = 11 750, 8 squarings)."""
+    from chip_smoke import IRN_VOC_HW, irn_edges, irn_images, irn_net
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.methods import irnet
+    from wsss_tpu_torch.methods.gradcam_cues import _ClassifierHandle
+    from wsss_tpu_torch.ops.crf import config as crf_config
+    spec = registry.get('VOC2012')
+    conf_fg, exp_times = crf_config.IRN_TUNED[('VOC2012', 'VGG16')]
+    handle = _ClassifierHandle.random('VGG16', spec.n_fg_classes, SIZE,
+                                      seed=0)
+    ci = irnet.CAMInference(handle, spec, 'VGG16')
+    net = irn_net(torch, 'vgg16', handle.model, seed=1)
+    imgs, tags = irn_images(torch, 11, 1, IRN_VOC_HW, spec.n_fg_classes)
+    crop = SIZE // 16 * 16
+    d = ci.make_cam(imgs[0], tags[0])
+    (edge,) = irn_edges(torch, net, spec, imgs, crop)
+    return profile_stages(torch, (
+        ('irn_make_cam', lambda: ci.make_cam(imgs[0], tags[0]), ITERS),
+        ('irn_cam_to_ir_label', lambda: irnet.cam_to_ir_label(
+            imgs[0], d, 'VOC2012', conf_fg), ITERS),
+        ('irn_edge', lambda: irn_edges(torch, net, spec, imgs, crop), ITERS),
+        ('irn_make_sem_seg', lambda: irnet.make_sem_seg(
+            edge, d, 'VOC2012', IRN_VOC_HW, exp_times=exp_times), 1)), {})
+
+
+SECTIONS = ('main', 'sec', 'irn_label', 'adp', 'cues', 'train', 'irn')
 
 
 def main():
@@ -333,7 +364,7 @@ def main():
         out['img_per_s'] = BATCH / (out['segment_batch']['wall_ms'] / 1e3)
     for section, fn in (('sec', profile_sec), ('irn_label', profile_irn_label),
                         ('adp', profile_adp), ('cues', profile_cues),
-                        ('train', profile_train)):
+                        ('train', profile_train), ('irn', profile_irn)):
         if section in only:
             out.update(fn(torch, gen))
     print(json.dumps(out))

@@ -91,7 +91,7 @@ def test_verbose_build_is_the_build_later_calls_load(tmp_path, monkeypatch):
     assert len(calls) == len(build.sources()) and build._LIBS == loaded
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip('a CUDA card is present: the default device is valid')
     from wsss_tpu_torch.data import registry
@@ -122,8 +122,18 @@ def test_entry_points_default_to_cuda():
     adp = _ClassifierHandle.random('M7', 31, 16, device='cpu')
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         ADPCueGenerator(adp, 'M7')
+    from wsss_tpu_torch.methods import irnet
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        irnet.CAMInference(fg, registry.get('DeepGlobe'), 'M7')
+    cam = {'keys': np.array([1]), 'cam': np.ones((1, 4, 4), np.float32),
+           'high_res': np.ones((1, 16, 16), np.float32)}
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        irnet.cam_to_ir_label(np.zeros((16, 16, 3), np.float32), cam,
+                              'VOC2012', 0.5)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        irnet.make_sem_seg(torch.zeros(4, 4), cam, 'VOC2012', (16, 16))
     import argparse
-    from wsss_tpu_torch.cli import common, gen_cues
+    from wsss_tpu_torch.cli import common, gen_cues, irn
     args = common.add_common_args(argparse.ArgumentParser()).parse_args(
         ['--dataset', 'DeepGlobe', '--model', 'M7', '--img_size', '16'])
     assert args.device == 'cuda'
@@ -132,6 +142,10 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         gen_cues.main(['--dataset', 'DeepGlobe', '--model', 'M7',
                        '--img_size', '16', '--synthetic_n', '2'])
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        irn.main(['--dataset', 'DeepGlobe', '--model', 'M7', '--img_size',
+                  '16', '--synthetic_n', '2', '--passes', 'make_cam',
+                  '--work_root', str(tmp_path)])
 
 
 def test_kernel_wrappers_take_cpu_or_cuda_only():

@@ -1,0 +1,386 @@
+"""IRNet's inference stages of the port, the reference's 03b
+(counterpart of ``wsss_tpu/methods/irnet.py`` without ``IRNTrainer``,
+which is ROADMAP queue 1 item 6b).
+
+Pipeline (03b_irn/func_sample.py:232-274):
+  1. make_cam        — multi-scale + flip CAM inference (step/make_cam.py)
+  2. eval_cam        — CAM mIoU (step/eval_cam.py; ``eval_cam_pred``)
+  3. cam_to_ir_label — confident fg/bg + CRF label refinement
+                       (step/cam_to_ir_label.py)
+  4. train_irn       — not ported yet (item 6b); ``affinity_labels``, its
+                       label extraction, is
+  5. make_sem_seg    — random-walk propagation
+                       (step/make_sem_seg_labels.py)
+
+Every stage runs on one device (``device='cuda'`` by default, raising
+without a card; ``'cpu'`` on request); the per-image dicts and label maps
+that cross between stages are host numpy, the reference's on-disk
+contract.  ``mesh=`` takes only None until the multi-device path is
+ported (item 8).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from wsss_tpu_torch.data import registry
+from wsss_tpu_torch.methods.gradcam_cues import (_ClassifierHandle, _no_mesh,
+                                                 _normalizer, _to)
+from wsss_tpu_torch.ops import cues as cue_ops
+from wsss_tpu_torch.ops.crf import config as crf_config
+from wsss_tpu_torch.ops.crf.meanfield import crf_label_refine
+from wsss_tpu_torch.ops.filters import resize_bilinear
+from wsss_tpu_torch.ops.random_walk import PathIndex, propagate_to_edge
+from wsss_tpu_torch.utils.device import resolve_device
+
+
+def get_strided_size(hw, stride):
+    """misc.imutils.get_strided_size (make_cam.py:41)."""
+    return ((hw[0] - 1) // stride + 1, (hw[1] - 1) // stride + 1)
+
+
+def get_strided_up_size(hw, stride):
+    """misc.imutils.get_strided_up_size (make_cam.py:42)."""
+    st = get_strided_size(hw, stride)
+    return st[0] * stride, st[1] * stride
+
+
+def _among(names) -> np.ndarray:
+    """Positions of ``names`` among the 31 ADP classes."""
+    return np.array([i for i, c in enumerate(registry.ADP_CLASSES_VGG16)
+                     if c in names])
+
+
+# ---------------------------------------------------------------------------
+# Step 1: make_cam — multi-scale+flip CAM inference
+# ---------------------------------------------------------------------------
+
+class CAMInference:
+    """MSF CAM (step/make_cam.py:25-93 + net/{vgg16,m7}_cam.py).
+
+    The CAM convolves the final conv features with the classifier's
+    weight matrix (VGG16, vgg16_cam.py:48) or the stored Grad-CAM weights
+    (M7 / X1.7, m7_cam.py:45-48); image + horizontal flip are summed.
+    Each scale's forward runs once for a batch of same-shape images with
+    image and flip in the batch axis, and the strided and high-res
+    targets are two resizes of the same CAM (the reference dispatches per
+    image, scale and target, make_cam.py:56-69).  The handle must live on
+    ``device``."""
+
+    def __init__(self, handle: _ClassifierHandle, spec: registry.DatasetSpec,
+                 model_type: str = 'VGG16',
+                 scales: Sequence[float] = (1.0, 0.5, 1.5, 2.0),
+                 adp_htt: Optional[str] = None, device='cuda'):
+        self.device = resolve_device(device)
+        if handle.device != self.device:
+            raise ValueError(f'handle on {handle.device}, CAMInference on '
+                             f'{self.device}')
+        self.handle = handle
+        self.spec = spec
+        self.scales = tuple(scales)
+        self.adp_htt = adp_htt
+        self.model_type = model_type
+        self._norm = _normalizer(spec.norm_irn, self.device)
+        self._is_x17 = model_type.upper().startswith('X1')
+        self._maps = registry.adp_index_maps(model_type) if adp_htt else None
+        if model_type.upper().startswith('VGG'):
+            # pure CAM: the classifier's Dense kernel [F, C]
+            self._cam_w = handle.model.head.weight.detach().t()
+        else:
+            self._cam_w = handle.weights   # M7/X1.7: Grad-CAM weights [F, C]
+        self._cam_w = self._cam_w.to(torch.float32)
+
+    @torch.no_grad()
+    def _msf_batch(self, imgs: torch.Tensor):
+        """imgs: [B,H,W,3] raw RGB on the device.  Returns (cam [B,C,sh,sw],
+        high_res [B,C,uh,uw] cropped to [H, W], scores [B,C_out]): the
+        multi-scale sums, flip-merged."""
+        b, h, w = imgs.shape[:3]
+        strided = get_strided_size((h, w), 4)
+        up = get_strided_up_size((h, w), 16)
+        cam_sum = hi_sum = scores0 = None
+        for s in self.scales:
+            img_s = resize_bilinear(imgs, (int(round(h * s)),
+                                           int(round(w * s))))
+            both = torch.cat([img_s, img_s.flip(2)])
+            scores, feats = self.handle.model(self._norm(both))
+            cam = torch.relu(torch.einsum('bhwf,fc->bhwc',
+                                          feats.to(torch.float32),
+                                          self._cam_w))
+            cam = cam[:b] + cam[b:].flip(2)              # merge the flip
+            cs, cu = resize_bilinear(cam, strided), resize_bilinear(cam, up)
+            cam_sum = cs if cam_sum is None else cam_sum + cs
+            hi_sum = cu if hi_sum is None else hi_sum + cu
+            if s == 1.0:
+                scores0 = scores[:b]
+        if scores0 is None:
+            scores0 = torch.zeros((b, self._cam_w.shape[1]),
+                                  device=self.device)
+        return (cam_sum.permute(0, 3, 1, 2),
+                hi_sum[:, :h, :w].permute(0, 3, 1, 2), scores0)
+
+    def _modify_adp(self, cam31: torch.Tensor, img_raw: torch.Tensor
+                    ) -> torch.Tensor:
+        """ADP bg/other synthesis (net/common_cam.py:31-92) on [C,h,w]:
+        morph clamps bg at 0 (relu), func does not."""
+        morph31 = _among(registry.ADP_MORPH_CLASSES)
+        func31 = _among(registry.ADP_FUNC_CLASSES)
+        adipose31 = _among(registry.ADP_ADIPOSE_CLASSES)
+        cam_hwc = cam31.permute(1, 2, 0)[None]
+        if self.adp_htt == 'morph':
+            vol = torch.zeros(cam_hwc.shape[:3] + (1 + len(morph31),),
+                              device=cam31.device)
+            vol[..., 1:] = cam_hwc[..., morph31]
+            vol = cue_ops.modify_by_htt(
+                vol, img_raw, exception_inds=[
+                    int(i) for i in 1 + np.searchsorted(morph31, adipose31)],
+                bg_ind=0, relu_bg=True)
+        else:
+            vol = torch.zeros(cam_hwc.shape[:3] + (2 + len(func31),),
+                              device=cam31.device)
+            vol[..., 2:] = cam_hwc[..., func31]
+            adipose_cam = torch.amax(cam_hwc[..., adipose31], dim=-1)
+            vol = cue_ops.modify_by_htt(
+                vol, img_raw, exception_inds=list(range(2, 2 + len(func31))),
+                bg_ind=0, other_ind=1, adipose_cam=adipose_cam)
+        return vol[0].permute(2, 0, 1)
+
+    def make_cam_batch(self, imgs_raw, tags: Optional[np.ndarray],
+                       mesh=None) -> list:
+        """Batch of same-shape images -> list of {'keys','cam','high_res'}
+        dicts of host numpy (make_cam.py:78-88 per image).
+
+        imgs_raw: [B,H,W,3] RGB 0..255 (numpy or a tensor).  tags:
+        [B,C_fg] or None."""
+        _no_mesh(mesh)
+        imgs = _to(imgs_raw, self.device)
+        cam, hi, scores = self._msf_batch(imgs)
+        return [self._finalize(imgs[i], cam[i], hi[i], scores[i],
+                               None if tags is None else np.asarray(tags[i]))
+                for i in range(imgs.shape[0])]
+
+    def make_cam(self, img_raw, tags: Optional[np.ndarray]
+                 ) -> Dict[str, np.ndarray]:
+        """One image -> {'keys','cam','high_res'} (make_cam.py:78-88).
+
+        img_raw: [H,W,3] RGB 0..255.  tags: [C_fg] image labels (train
+        split) or None (thresholded predictions, make_cam.py:49-52)."""
+        return self.make_cam_batch(
+            img_raw[None], None if tags is None else tags[None])[0]
+
+    @torch.no_grad()
+    def _finalize(self, img, cam31, hi31, scores0, tags
+                  ) -> Dict[str, np.ndarray]:
+        """Per-image key selection / ADP synthesis / normalization."""
+        th = self.handle.thresholds.cpu().numpy()
+        if self._is_x17:
+            keep = self._maps['x17_to_31']
+            keep_t = torch.as_tensor(keep, device=cam31.device)
+            cam31, hi31 = cam31[keep_t], hi31[keep_t]
+            scores0, th = scores0[keep_t], th[keep]
+        sc = scores0.cpu().numpy()
+        if self.adp_htt:
+            img_raw = img[None]
+            cam31 = self._modify_adp(cam31, img_raw)
+            hi31 = self._modify_adp(hi31, img_raw)
+            nbg = 1 if self.adp_htt == 'morph' else 2
+            fg31 = _among(registry.ADP_MORPH_CLASSES if self.adp_htt == 'morph'
+                          else registry.ADP_FUNC_CLASSES)
+            valid_fg = (np.where(tags > 0.5)[0] if tags is not None else
+                        np.where(sc[fg31] >= th[fg31])[0])
+            keys = np.concatenate([np.arange(nbg), valid_fg + nbg])
+        else:
+            if tags is not None:
+                keys = np.where(tags > 0.5)[0]
+            else:
+                passed = sc >= th
+                if not passed.any():
+                    passed[sc.argmax()] = True  # vgg16_cam.py:41-42
+                keys = np.where(passed)[0]
+        if len(keys) == 0:
+            return {'keys': np.empty(0, np.int64),
+                    'cam': np.empty(0), 'high_res': np.empty(0)}
+        sel = torch.as_tensor(keys, device=cam31.device)
+        cam31, hi31 = cam31[sel], hi31[sel]
+        cam31 = cam31 / (torch.amax(cam31, dim=(1, 2), keepdim=True) + 1e-5)
+        hi31 = hi31 / (torch.amax(hi31, dim=(1, 2), keepdim=True) + 1e-5)
+        return {'keys': np.asarray(keys),
+                'cam': cam31.cpu().numpy(),
+                'high_res': hi31.cpu().numpy()}
+
+
+# ---------------------------------------------------------------------------
+# Step 2: eval_cam label assembly
+# ---------------------------------------------------------------------------
+
+def eval_cam_pred(cam_dict: Dict[str, np.ndarray], dataset: str,
+                  cam_eval_thres: float) -> Optional[np.ndarray]:
+    """Per-dataset CAM -> label-map assembly, exactly eval_cam.py:48-62:
+
+      * VOC2012: pad a constant `cam_eval_thres` channel in front of
+        high_res and shift keys by the background class (:49-52).
+      * ADP: argmax the raw high_res channels — keys already include the
+        background classes (make_cam.py:54-61), no padding (:53-55).
+      * DeepGlobe: argmax the raw STRIDED 'cam' array with raw keys
+        (:56-58) — NOT high_res.
+
+    Returns the label map at the cams' resolution, or None when the cam
+    dict is empty for a non-VOC dataset (the reference would crash on
+    argmax of an empty array; such images are skipped).  Host numpy."""
+    if dataset == 'VOC2012':
+        cams = np.pad(cam_dict.get('high_res', cam_dict['cam']),
+                      ((1, 0), (0, 0), (0, 0)),
+                      constant_values=cam_eval_thres)
+        keys = np.pad(cam_dict['keys'] + 1, (1, 0), mode='constant')
+    elif dataset.startswith('ADP'):
+        if cam_dict['keys'].size == 0:
+            return None
+        keys = cam_dict['keys']
+        cams = cam_dict.get('high_res', cam_dict['cam'])
+    else:                              # DeepGlobe / DeepGlobe_balanced
+        if cam_dict['keys'].size == 0:
+            return None
+        keys = cam_dict['keys']
+        cams = cam_dict['cam']
+    return np.asarray(keys)[np.argmax(cams, axis=0)]
+
+
+# ---------------------------------------------------------------------------
+# Step 3: cam_to_ir_label
+# ---------------------------------------------------------------------------
+
+def _refine(img: torch.Tensor, lab: np.ndarray, n: int, cfg) -> np.ndarray:
+    return crf_label_refine(img, torch.as_tensor(lab, device=img.device), n,
+                            cfg).cpu().numpy()
+
+
+def cam_to_ir_label(img_raw, cam_dict: Dict[str, np.ndarray], dataset: str,
+                    conf_fg_thres: float, conf_bg_thres: float = 0.05,
+                    cfg: crf_config.CRFConfig = crf_config.IRN_LABEL,
+                    device='cuda') -> np.ndarray:
+    """step/cam_to_ir_label.py:18-77 — confident-region pseudo labels with
+    CRF refinement; 255 = ignore.  The CRF runs on ``device``: two calls
+    an image on VOC (fg and bg thresholds), one on ADP and DeepGlobe.
+    Returns uint8 host labels."""
+    keys = cam_dict['keys']
+    if keys.size == 0:
+        return np.full(np.shape(img_raw)[:2], 255, np.uint8)
+    img = torch.as_tensor(img_raw).to(resolve_device(device), torch.float32)
+    if dataset == 'VOC2012':
+        keys_pad = np.pad(keys + 1, (1, 0), mode='constant')
+        hr = np.pad(cam_dict['high_res'], ((1, 0), (0, 0), (0, 0)),
+                    constant_values=conf_fg_thres)
+        fg_conf = keys_pad[_refine(img, np.argmax(hr, 0), len(keys_pad),
+                                   cfg)]
+        hr_bg = np.pad(cam_dict['high_res'], ((1, 0), (0, 0), (0, 0)),
+                       constant_values=conf_bg_thres)
+        bg_conf = keys_pad[_refine(img, np.argmax(hr_bg, 0), len(keys_pad),
+                                   cfg)]
+        conf = fg_conf.copy()
+        conf[fg_conf == 0] = 255
+        conf[(bg_conf + fg_conf) == 0] = 0
+    else:
+        # ADP / DeepGlobe (cam_to_ir_label.py:29-41,59-74); DeepGlobe
+        # downsamples the image x4 (to a square, as the reference does)
+        # and uses the strided cam
+        keys_pad = np.concatenate([[-1], keys])
+        src = 'cam' if dataset.startswith('DeepGlobe') else 'high_res'
+        cam = cam_dict[src]
+        if dataset.startswith('DeepGlobe'):
+            h4 = img.shape[0] // 4
+            img = resize_bilinear(img[None], (h4, h4))[0]
+            cam_t = torch.as_tensor(cam, dtype=torch.float32,
+                                    device=img.device).permute(1, 2, 0)
+            cam = resize_bilinear(cam_t[None], (h4, h4))[0].permute(
+                2, 0, 1).cpu().numpy()
+        hr = np.pad(cam, ((1, 0), (0, 0), (0, 0)),
+                    constant_values=conf_fg_thres)
+        conf = keys_pad[_refine(img, np.argmax(hr, 0), len(keys_pad),
+                                cfg)].astype(np.int64)
+        conf[conf == -1] = 255
+    return conf.astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Step 4: train_irn's affinity labels
+# ---------------------------------------------------------------------------
+
+def affinity_labels(ir_label_reduced: np.ndarray, path_index: PathIndex,
+                    n_valid_classes: int):
+    """GetAffinityLabelFromIndices (voc12/dataloader.py:108-134).
+
+    ir_label_reduced: [h,w] int (255 = ignore) at the /4 grid.
+    Returns (bg_pos, fg_pos, neg) float32 [P, M], host numpy."""
+    src, dst = path_index.pair_indices(ir_label_reduced.shape)
+    flat = ir_label_reduced.reshape(-1)
+    lab_from = flat[src][None]          # [1,M]
+    lab_to = flat[dst]                  # [P,M]
+    valid = (lab_from < n_valid_classes) & (lab_to < n_valid_classes)
+    equal = lab_from == lab_to
+    pos = equal & valid
+    bg_pos = (pos & (lab_from == 0)).astype(np.float32)
+    fg_pos = (pos & (lab_from > 0)).astype(np.float32)
+    neg = (~equal & valid).astype(np.float32)
+    return bg_pos, fg_pos, neg
+
+
+# ---------------------------------------------------------------------------
+# Step 5: make_sem_seg
+# ---------------------------------------------------------------------------
+
+def make_sem_seg(edge: torch.Tensor, cam_dict: Dict[str, np.ndarray],
+                 dataset: str, orig_hw: Tuple[int, int],
+                 beta: float = 10.0, exp_times: int = 8,
+                 sem_seg_bg_thres: float = 0.25,
+                 walk_downsample: int = 6, mesh=None,
+                 device='cuda') -> np.ndarray:
+    """step/make_sem_seg_labels.py:40-140 — random-walk propagation on
+    ``device``.
+
+    edge: [h,w] sigmoid edge map (resized onto the CAM grid here when it
+    is not on it).  Returns uint8 host labels at the dataset's output
+    resolution.
+
+    walk_downsample: the reference's extra DeepGlobe /6 before the walk
+    (make_sem_seg_labels.py:101-104), there because one card cannot hold
+    the [N,N] transition matrix at full resolution."""
+    _no_mesh(mesh)
+    keys = cam_dict['keys']
+    if keys.size == 0:
+        if dataset.startswith('DeepGlobe'):
+            return np.full((orig_hw[0] // 4, orig_hw[1] // 4), 5, np.uint8)
+        return np.zeros(orig_hw, np.uint8)
+    dev = resolve_device(device)
+    cam = torch.as_tensor(cam_dict['cam'], dtype=torch.float32, device=dev)
+    edge = torch.as_tensor(edge).to(dev, torch.float32)
+    if dataset.startswith('DeepGlobe'):
+        # extra downsample before the walk (make_sem_seg_labels.py:101-104)
+        h6 = max(cam.shape[1] // walk_downsample, 4)
+        w6 = max(cam.shape[2] // walk_downsample, 4)
+        cam = resize_bilinear(cam.permute(1, 2, 0)[None],
+                              (h6, w6))[0].permute(2, 0, 1)
+    if tuple(edge.shape) != tuple(cam.shape[1:]):
+        edge = resize_bilinear(edge[None, ..., None], cam.shape[1:])[0, ..., 0]
+    rw = propagate_to_edge(cam, edge, beta=beta, exp_times=exp_times,
+                           radius=5)
+    rw_hwc = rw.permute(1, 2, 0)[None]
+    if dataset == 'VOC2012':
+        keys_pad = np.pad(keys + 1, (1, 0), mode='constant')
+        rw_up = resize_bilinear(rw_hwc, orig_hw)[0]
+        rw_up = rw_up / torch.max(rw_up)
+        rw_bg = torch.cat([torch.full(tuple(orig_hw) + (1,),
+                                      sem_seg_bg_thres, device=dev), rw_up],
+                          dim=-1)
+        # torch.argmax takes the first of tied maxima, as jnp.argmax does
+        pred = torch.argmax(rw_bg, dim=-1).cpu().numpy()
+        return keys_pad[pred].astype(np.uint8)
+    if dataset.startswith('DeepGlobe'):
+        out_hw = (orig_hw[0] // 4, orig_hw[1] // 4)
+    else:
+        out_hw = orig_hw
+    rw_up = resize_bilinear(rw_hwc, out_hw)[0]
+    rw_up = rw_up / torch.max(rw_up)
+    pred = torch.argmax(rw_up, dim=-1).cpu().numpy()
+    return keys[pred].astype(np.uint8)

@@ -336,8 +336,8 @@ def build_classifier(model_type: str, num_classes: int,
 @torch.no_grad()
 def init_random(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """flax's default initialisation, drawn from ``generator``: LeCun
-    truncated-normal conv and dense kernels, zero biases, BN scale 1 /
-    bias 0 with running mean 0 / var 1."""
+    truncated-normal conv and dense kernels, zero biases (where a layer
+    has one), BN scale 1 / bias 0 with running mean 0 / var 1."""
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.Linear)):
             fan_in = mod.weight[0].numel()
@@ -346,7 +346,8 @@ def init_random(model: nn.Module, generator: torch.Generator) -> nn.Module:
             nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
             mod.weight.copy_(w)
-            mod.bias.zero_()
+            if mod.bias is not None:
+                mod.bias.zero_()
         elif isinstance(mod, nn.BatchNorm2d):
             mod.reset_parameters()
     return model

@@ -76,6 +76,19 @@ def load_learned_config(npy_path: str) -> CRFConfig:
                      float(row[3]), float(row[4]), int(row[5]))
 
 
+# --- IRNet tuned hyperparameters shipped with the reference
+# (03b_irn/demo_sem_seg.py:8-18 via BASELINE.md): (conf_fg_thres,
+# exp_times) per dataset x model family.  The CLI falls back to (0.5, 8)
+# for a pair not listed.
+IRN_TUNED = {
+    ('ADP-morph', 'VGG16'): (0.5, 2), ('ADP-morph', 'X1.7'): (0.5, 1),
+    ('ADP-func', 'VGG16'): (0.7, 3), ('ADP-func', 'X1.7'): (0.3, 1),
+    ('VOC2012', 'VGG16'): (0.5, 8), ('VOC2012', 'M7'): (0.7, 3),
+    ('DeepGlobe', 'VGG16'): (0.5, 4), ('DeepGlobe', 'M7'): (0.5, 8),
+    ('DeepGlobe_balanced', 'VGG16'): (0.4, 7),
+    ('DeepGlobe_balanced', 'M7'): (0.7, 7),
+}
+
 # --- IRNet ir-label refinement (misc.imutils.crf_inference_label upstream:
 # gaussian sxy=3 compat=3, bilateral sxy=50 srgb=5 compat=10, 10 iters) ---
 IRN_LABEL = CRFConfig(3, 3, 50, 5, 10, 10)
