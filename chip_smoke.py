@@ -116,30 +116,51 @@ Phases, in order; any failure exits non-zero and prints no result:
                from that checkpoint (exactly 44 launches of each v2
                kernel); it stands in for the ROC, .h5 and heatmap writers
                where matplotlib or h5py is missing and says so;
- 12. irn     — IRNet's inference stages (03b), random weights, full
-               width: irn_voc (VGG16, 4 images of 375x500 with tags:
-               make_cam_batch at the scales (1.0, 0.5, 1.5, 2.0),
-               eval_cam_pred, cam_to_ir_label at IRN_LABEL with the
-               flat_color_blur launches the CRF structures predict and its
-               labels against the plain versions, an IRNet vgg16 with the
-               classifier's trunk transplanted and edge inference on the
-               320 top-left crop, make_sem_seg at IRN_TUNED (0.5, 8): img/s
-               and peak memory a stage, the walk's n, ms, TFLOP/s against
-               its float32 bound and its share of make_sem_seg);
-               irn_card_vs_cpu (one 161^2 image through the chain on the
-               card and on the CPU: cams within IRN_CAM_TOL, ir-labels and
-               sem-seg labels at IRN_IR_FLOOR / IRN_SEM_FLOOR); cli_irn
-               (cli.irn.main pass by pass on 4 synthetic VOC images from a
-               port IRNet checkpoint in a temporary directory: img/s a
-               pass, launches as predicted, eval_sem_seg's mIoU equal to
-               the phase's own confusion of the written PNGs, --passes
-               train_irn refused before writing); irn_adp (one ADP-morph
-               image at its native 1088^2, X1.7: make_cam; cam_to_ir_label
-               raises there as the reference's does (IRN_LABEL has no
-               tractable structure at that size); an IRNet m7 and
-               make_sem_seg at IRN_TUNED (0.5, 1), whose
-               walk at n = 73 984 holds two 21.9 GB matrices: its time,
-               TFLOP/s and the peak memory);
+ 12. irn     — IRNet (03b), random weights, full width: irn_voc (VGG16,
+               4 images of 375x500 with tags: make_cam_batch at the
+               scales (1.0, 0.5, 1.5, 2.0), eval_cam_pred, cam_to_ir_label
+               at IRN_LABEL with the flat_color_blur launches the CRF
+               structures predict and its labels against the plain
+               versions, an IRNet vgg16 with the classifier's trunk
+               transplanted and edge inference on the 320 top-left crop,
+               make_sem_seg at IRN_TUNED (0.5, 8): img/s and peak memory a
+               stage, the walk's n, ms, TFLOP/s against its float32 bound
+               and its share of make_sem_seg); irn_card_vs_cpu (one 161^2
+               image through the chain on the card and on the CPU: cams
+               within IRN_CAM_TOL, ir-labels and sem-seg labels at
+               IRN_IR_FLOOR / IRN_SEM_FLOOR); irn_train_voc (IRNTrainer
+               vgg16 at crop 320, batch 8, radius 10: P 152, M 4402; the
+               trunk transplanted from irn_voc's classifier, the heads
+               from seed 1; TRAIN_STEPS steps on one synthetic batch whose
+               labels come from a flat-block ir-label map with 255
+               borders: img/s, ms a step by CUDA events (trunk forward,
+               heads forward, to_affinity_sliced + losses, backward,
+               optimizer), the host's affinity_labels and host-to-card
+               copy apart from the step, peak memory; the trunk bit-equal
+               after, the losses finite and falling; no hand kernel);
+               irn_train_adp (m7 on an ADP-morph X1.7 classifier of seed
+               2 at crop 224: the edge logits' resize and its backward);
+               irn_train_card_vs_cpu (vgg16 and m7, batch 2, crop 64:
+               calibrate_disp_mean within IRN_DISP_MEAN_TOL, then one step,
+               loss within TRAIN_LOSS_RTOL, parameters within
+               TRAIN_PARAM_ATOL); cli_irn (cli.irn.main's six passes one at
+               a time on 16 synthetic VOC images in a temporary directory,
+               make_sem_seg restoring the checkpoint train_irn wrote: img/s
+               a pass, no hand kernel but K11 in cam_to_ir_label as
+               predicted, eval_sem_seg's mIoU equal to the phase's own
+               confusion of the written PNGs; then --passes all, whole);
+               irn_adp (one ADP-morph image at its native 1088^2, X1.7:
+               make_cam; cam_to_ir_label raises there as the reference's
+               does (IRN_LABEL has no tractable structure at that size); an
+               IRNet m7 and make_sem_seg at IRN_TUNED (0.5, 1), whose walk
+               at n = 73 984 holds two 21.9 GB matrices: its time, TFLOP/s
+               and the peak memory);
+     parity  — cli.parity.main in its synthetic smoke mode in a temporary
+               directory (VOC2012, VGG16 at 321^2, 16 images: 01 -> 02 ->
+               03a -> 03b -> 03c; stand-ins for the writers of a missing
+               matplotlib or h5py): a report row for each of the five
+               methods with its mIoU in [0, 1], the v2 kernels and K11
+               launched, the wall time;
  13. result  — one JSON line of kernels, then the last line
                {"ok": true, "device": {...}}.
 Every path is driven with the launch counts set to 0 just before it and
@@ -1793,6 +1814,41 @@ def run_cli(torch, main, argv):
     return res, out.getvalue(), dt, dict(K.LAUNCHES)
 
 
+class MissingWriters:
+    """While installed, stand-ins for the writers whose library this
+    machine lacks (matplotlib: the ROC plot and the confusion heatmap;
+    h5py: the Keras .h5): each prints which file it did not write."""
+
+    def __init__(self, tag):
+        import importlib.util
+        from wsss_tpu_torch.eval import reports
+        from wsss_tpu_torch.io import legacy
+        self.tag = tag
+        self.swaps = [(mod, name, lib) for mod, name, lib in (
+            (reports, 'plot_rocs', 'matplotlib'),
+            (reports, 'confusion_heatmap', 'matplotlib'),
+            (legacy, 'write_keras_h5', 'h5py'))
+            if importlib.util.find_spec(lib) is None]
+
+    def stand_in(self, name, lib):
+        import os
+
+        def skip(path, *a, **kw):
+            print(f'[{self.tag}] {os.path.basename(path)} not written: '
+                  f'{lib} is not installed on this machine ({name})')
+        return skip
+
+    def __enter__(self):
+        self.kept = [getattr(mod, name) for mod, name, _ in self.swaps]
+        for mod, name, lib in self.swaps:
+            setattr(mod, name, self.stand_in(name, lib))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name, _), fn in zip(self.swaps, self.kept):
+            setattr(mod, name, fn)
+
+
 def csv_and_xlsx_agree(csv_path):
     """The IoU csv and its .xlsx sibling: same class rows, values within
     the csv's 5 decimals."""
@@ -1943,19 +1999,11 @@ def phase_cli(torch):
         wsss = os.path.join(tmp, 'models_wsss')
         checkpoint.save_checkpoint(os.path.join(wsss, run_id), 1,
                                    {'params': pred.net.state_dict()})
-        heatmap = reports.confusion_heatmap
-        if not have['matplotlib']:
-            def skip_heatmap(path, conf, class_names, normalize=True):
-                print(f'[cli] {os.path.basename(path)} not written: '
-                      'matplotlib is not installed on this machine')
-            reports.confusion_heatmap = skip_heatmap
-        try:
+        with MissingWriters('cli'):
             res, text, dt, launches = run_cli(
                 torch, sec_cli.main, ['--task', 'predict', '--method', 'SEC',
                                       '--dataset', 'VOC2012', '--synthetic_n',
                                       '4', '--wsss_model_root', wsss] + roots)
-        finally:
-            reports.confusion_heatmap = heatmap
         check(f'resumed {run_id} from step 1' in text,
               'cli_sec did not restore the port checkpoint')
         check_launches(launches, V2_KERNELS, 'cli_sec')
@@ -2018,16 +2066,20 @@ TRAIN_STEPS = 10
 
 class StepClock:
     """CUDA events at the points of a train step: the forward of `fwd`
-    (hooks), the CRF layer and the region growing (wrapped where the loss
-    modules call them), `net`'s zero_grad (the end of the losses, just
-    before the backward) and the optimizer's step (wrapped on the
-    instance)."""
+    (hooks) and, where given, the end of its `inner` module's forward
+    (IRNet's trunk), the CRF layer and the region growing (wrapped where
+    the loss modules call them), `net`'s zero_grad (the end of the
+    losses, just before the backward) and the optimizer's step (wrapped
+    on the instance)."""
 
-    def __init__(self, torch, net, opt, fwd, wrap=()):
+    def __init__(self, torch, net, opt, fwd, wrap=(), inner=None):
         self.torch, self.marks = torch, []
         self.hooks = [
             fwd.register_forward_pre_hook(lambda m, a: self.mark('fwd0')),
             fwd.register_forward_hook(lambda m, a, o: self.mark('fwd1'))]
+        if inner is not None:
+            self.hooks.append(inner.register_forward_hook(
+                lambda m, a, o: self.mark('inner1')))
         zero_grad, step = net.zero_grad, opt.step
 
         def timed_zero_grad(*a, **kw):
@@ -2082,6 +2134,9 @@ class StepClock:
             st = {'forward': ms('fwd0', 'fwd1'),
                   'backward': ms('loss1', 'opt0'),
                   'optimizer': ms('opt0', 'opt1')}
+            if 'inner1' in s:
+                st['trunk_forward'] = ms('fwd0', 'inner1')
+                st['heads_forward'] = ms('inner1', 'fwd1')
             extra = 0.0
             for name in ('crf_layer', 'region_grow'):
                 if name + '0' in s:
@@ -2264,33 +2319,17 @@ def phase_cli_train(torch, ips_of):
     images, batch 8, 1 epoch, calibration, triplet), cli.sec_dsrg --task
     train for SEC and DSRG (1 epoch on 16 images), then --task predict
     --method SEC from the trained checkpoint."""
-    import importlib.util
     import os
     import tempfile
     from wsss_tpu_torch.cli import sec_dsrg as sec_cli
     from wsss_tpu_torch.cli import train_classifier as train_cli
-    from wsss_tpu_torch.eval import reports
-    from wsss_tpu_torch.io import checkpoint, legacy
+    from wsss_tpu_torch.io import checkpoint
     from wsss_tpu_torch.models.backbones import build_classifier
-    have = {m: importlib.util.find_spec(m) is not None
-            for m in ('matplotlib', 'h5py')}
-    keep = reports.plot_rocs, legacy.write_keras_h5, reports.confusion_heatmap
-
-    def stand_in(lib, what):
-        def skip(path, *a, **kw):
-            print(f'[cli_train] {os.path.basename(path)} not written: '
-                  f'{lib} is not installed on this machine ({what})')
-        return skip
-    if not have['matplotlib']:
-        reports.plot_rocs = stand_in('matplotlib', 'plot_rocs')
-        reports.confusion_heatmap = stand_in('matplotlib',
-                                             'confusion_heatmap')
-    if not have['h5py']:
-        legacy.write_keras_h5 = stand_in('h5py', 'write_keras_h5')
     paths, n_img = {}, 16
     cwd = os.getcwd()
     try:
-        with tempfile.TemporaryDirectory() as tmp:
+        with MissingWriters('cli_train'), \
+                tempfile.TemporaryDirectory() as tmp:
             os.chdir(tmp)
             roots = ['--model_root', 'models', '--eval_root', 'eval',
                      '--out_root', 'out', '--synthetic_n', str(n_img),
@@ -2370,8 +2409,6 @@ def phase_cli_train(torch, ips_of):
             os.chdir(cwd)                 # before the directory goes
     finally:
         os.chdir(cwd)
-        reports.plot_rocs, legacy.write_keras_h5, \
-            reports.confusion_heatmap = keep
     return paths
 
 
@@ -2389,9 +2426,7 @@ def phase_train(torch):
 IRN_VOC_N, IRN_VOC_HW = 4, (375, 500)
 IRN_ADP_SIZE = 1088
 IRN_SMALL = 161
-IRN_CLI_N = 4
-IRN_PASSES = ('make_cam', 'eval_cam', 'cam_to_ir_label', 'make_sem_seg',
-              'eval_sem_seg')
+IRN_CLI_N = 16             # two full batches of 8: train_irn takes 2 steps
 IRN_CAM_TOL = 1e-4          # card against CPU, cam and high_res maps
 IRN_IR_FLOOR = 0.99         # ir-labels: the card's scatter grid against
 #                             the CPU's route (PERF.md §6: 0.9954 apart)
@@ -2770,9 +2805,26 @@ def phase_irn_card_vs_cpu(torch, smi, handle, net):
     return {'irn_card_vs_cpu': launches}
 
 
-def phase_cli_irn(torch, smi, net, ips):
-    """cli.irn.main over the five passes on SyntheticWSSS VOC2012, in a
-    temporary directory, from a port checkpoint of the irn_voc IRNet."""
+def irn_cli_k11(torch, run, n):
+    """flat_color_blur launches the structures predict for cli.irn's
+    cam_to_ir_label over the cam dicts under `run`."""
+    import os
+    from wsss_tpu_torch.data.pipeline import SyntheticWSSS
+    from wsss_tpu_torch.io import artifacts
+    from wsss_tpu_torch.ops.crf import config as crf_config
+    hws, dicts = [], []
+    for b in SyntheticWSSS('VOC2012', size=SIZE, n_images=n).iter_native():
+        hws.append(b.images.shape[1:3])
+        dicts.append(artifacts.read_cam_npy(os.path.join(
+            run, 'cam', b.names[0] + '.npy')))
+    return irn_k11_launches(crf_config.IRN_LABEL, ir_label_calls(
+        'VOC2012', dicts, hws))
+
+
+def phase_cli_irn(torch, smi, ips):
+    """cli.irn.main over its six passes one at a time on SyntheticWSSS
+    VOC2012 in a temporary directory (make_sem_seg restores the
+    checkpoint train_irn wrote), then --passes all once, whole."""
     import os
     import tempfile
     from PIL import Image
@@ -2780,8 +2832,7 @@ def phase_cli_irn(torch, smi, net, ips):
     from wsss_tpu_torch.data import registry
     from wsss_tpu_torch.data.pipeline import SyntheticWSSS
     from wsss_tpu_torch.eval import metrics
-    from wsss_tpu_torch.io import artifacts, checkpoint
-    from wsss_tpu_torch.ops.crf import config as crf_config
+    from wsss_tpu_torch.io import checkpoint
     spec = registry.get('VOC2012')
     n = IRN_CLI_N
     total = {}
@@ -2792,41 +2843,29 @@ def phase_cli_irn(torch, smi, net, ips):
                 str(SIZE), '--synthetic_n', str(n), '--batchsize',
                 str(BATCH), '--model_root', os.path.join(tmp, 'no_models')]
         argv = base + ['--work_root', work]
-        refused = os.path.join(tmp, 'refused')
-        try:
-            irn_cli.main(base + ['--work_root', refused, '--passes',
-                                 'train_irn'])
-            check(False, 'cli.irn --passes train_irn did not raise')
-        except NotImplementedError as e:
-            check('item 6b' in str(e) and not os.path.exists(refused),
-                  f'train_irn refused late or without the item: {e}')
-        checkpoint.save_checkpoint(
-            os.path.join(run, 'irn_ckpt'), 0,
-            {'variables': net.state_dict(), 'disp_mean': torch.zeros(2)})
-        for ps in IRN_PASSES:
+        for ps in irn_cli.PASSES:
             res, text, dt, launches = run_cli(
                 torch, irn_cli.main, argv + ['--passes', ps])
             if ps == 'cam_to_ir_label':
-                ds = SyntheticWSSS('VOC2012', size=SIZE, n_images=n)
-                hws, dicts = [], []
-                for b in ds.iter_native():
-                    hws.append(b.images.shape[1:3])
-                    dicts.append(artifacts.read_cam_npy(os.path.join(
-                        run, 'cam', b.names[0] + '.npy')))
-                want = irn_k11_launches(crf_config.IRN_LABEL, ir_label_calls(
-                    'VOC2012', dicts, hws))
+                want = irn_cli_k11(torch, run, n)
                 check_launches(launches, SCATTER, 'cli_irn cam_to_ir_label')
                 check(launches['flat_color_blur'] == want,
                       f'cli_irn cam_to_ir_label launches {launches}, the '
                       f'structures predict {want}')
             else:
                 check_launches(launches, (), f'cli_irn {ps}')
+            if ps == 'train_irn':
+                check('[train_irn] trained; disp_mean=' in text
+                      and checkpoint.latest_step(
+                          os.path.join(run, 'irn_ckpt')) == 0,
+                      'cli_irn train_irn wrote no checkpoint at step 0')
             for k, v in launches.items():
                 total[k] = total.get(k, 0) + v
             direct = {'make_cam': 'make_cam', 'cam_to_ir_label':
                       'cam_to_ir_label', 'make_sem_seg': 'make_sem_seg',
-                      'eval_cam': 'eval_cam'}.get(ps)
-            beside = (f'; direct call on 375x500 in irn_voc '
+                      'eval_cam': 'eval_cam',
+                      'train_irn': 'irn_train_voc'}.get(ps)
+            beside = (f'; direct call in irn_voc / irn_train_voc '
                       f'{ips[direct]:.2f} img/s' if direct else '')
             if ps == 'make_sem_seg':
                 beside += f' (with the edge inference {ips["edge"]:.2f})'
@@ -2849,7 +2888,238 @@ def phase_cli_irn(torch, smi, net, ips):
         print(f'[cli_irn] eval_sem_seg mIoU {miou:.6f}, the phase\'s own '
               f'confusion of the written PNGs {own:.6f}')
         check(abs(miou - own) <= 1e-12, 'eval_sem_seg mIoU differs')
-    return {'cli_irn': total}
+        work_all = os.path.join(tmp, 'work_all')
+        res, text, dt, launches = run_cli(
+            torch, irn_cli.main, base + ['--work_root', work_all])
+        want = irn_cli_k11(torch, os.path.join(work_all,
+                                               'IRN_VOC2012_VGG16'), n)
+        check_launches(launches, SCATTER, 'cli_irn_all')
+        check(launches['flat_color_blur'] == want,
+              f'cli_irn --passes all launches {launches}, the structures '
+              f'of its cam_to_ir_label predict {want}')
+        check(sorted(res) == ['cam_miou', 'miou']
+              and all(0.0 <= v <= 1.0 for v in res.values()),
+              f'cli_irn --passes all result {res}')
+        print(f'[cli_irn] --passes all (the default), whole: {n} images in '
+              f'{dt:.3f} s, mIoU {res["miou"]:.6f}, cam mIoU '
+              f'{res["cam_miou"]:.6f}; launches '
+              f'{ {k: v for k, v in launches.items() if v} } ({smi})')
+    return {'cli_irn': total, 'cli_irn_all': launches}
+
+
+# --- 03b: IRNet training ----------------------------------------------------
+# IRNTrainer at full width: batch 8 at the VOC VGG16 crop (320: the /4
+# grid 80, radius 10 -> P = 152 paths, M = 71 x 62 = 4402 pairs) and at
+# the ADP X1.7 crop (224, m7: grid 56, M = 47 x 38 = 1786); one step of
+# each backbone at batch 2, crop 64, on the card against the CPU.
+IRN_TRAIN_BATCH = 8
+IRN_TRAIN_CHECK = 64
+IRN_DISP_MEAN_TOL = 1e-5
+
+
+def irn_train_batch(seed, n, crop, n_seg, pidx):
+    """(n seeded uint8 images [n,crop,crop,3], the three affinity-label
+    arrays [n,P,M] float32, the host seconds the labels took).  Each
+    image is flat-coloured 40-px blocks of background and two classes (a
+    colour a class) plus noise; its ir-label map follows the blocks with
+    255 on a 4-px border around each, reduced by the CLI's /4 rescale and
+    turned into labels by affinity_labels, on the host.  numpy only: the
+    same batch on any machine."""
+    from wsss_tpu_torch.data import augment
+    from wsss_tpu_torch.methods import irnet
+    rng = np.random.default_rng(seed)
+    palette = rng.uniform(0, 255, (n_seg, 3))
+    nb = -(-crop // 40)
+    at = np.arange(crop) % 40
+    border = (at < 2) | (at >= 38)
+    imgs, labs = [], []
+    for _ in range(n):
+        classes = [0] + list(rng.choice(np.arange(1, n_seg), 2,
+                                        replace=False))
+        lab = np.repeat(np.repeat(rng.choice(classes, (nb, nb)), 40, 0),
+                        40, 1)[:crop, :crop].astype(np.int64)
+        img = palette[lab] + rng.normal(0, 10, (crop, crop, 3))
+        imgs.append(np.clip(img, 0, 255).round().astype(np.uint8))
+        lab[border[:, None] | border[None, :]] = 255
+        labs.append(lab)
+    g = crop // 4
+    t0 = time.perf_counter()
+    packs = [irnet.affinity_labels(augment.pil_rescale(lab, 0.25, 0)[:g, :g],
+                                   pidx, n_seg) for lab in labs]
+    host_s = time.perf_counter() - t0
+    return np.stack(imgs), [np.stack(z) for z in zip(*packs)], host_s
+
+
+def irn_train_path(torch, smi, name, backbone, spec, clf, crop):
+    """TRAIN_STEPS IRNTrainer steps at batch 8 on one synthetic batch
+    (max_step TRAIN_STEPS), the trunk transplanted from `clf`, the heads
+    from seed 1: img/s, stage ms
+    by CUDA events, host time, peak memory; the trunk bit-equal after,
+    every loss finite, the total falling.  Returns (launches, img/s)."""
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.methods import irnet
+    from wsss_tpu_torch.methods.gradcam_cues import _normalizer
+    from wsss_tpu_torch.models.transplant import transplant_classifier_trunk
+    n_seg = spec.n_seg_classes
+    # the poly schedule over the run's own length, as cli.irn sets
+    # max_step (at the default 1000 the step stays ~0.1, x10 on fc_dp*,
+    # and the loss on one batch oscillates)
+    tr = irnet.IRNTrainer(backbone, crop_size=crop,
+                          max_step=TRAIN_STEPS)
+    tr.init(torch.Generator().manual_seed(1))
+    transplant_classifier_trunk(clf, tr.net, backbone)
+    trunk0 = {k: v.clone() for k, v in tr.net.trunk.state_dict().items()}
+    b = IRN_TRAIN_BATCH
+    imgs, labels, host_s = irn_train_batch(21, b, crop, n_seg,
+                                           tr.path_index)
+    p, m = labels[0].shape[1:]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = torch.from_numpy(imgs).to('cuda')
+    dev_labels = [torch.from_numpy(a).to('cuda') for a in labels]
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    xn = _normalizer(spec.norm_irn, 'cuda')(x.to(torch.float32))
+    clock = StepClock(torch, tr.net, tr.tx, tr.net, inner=tr.net.trunk)
+    K.reset_launch_counts()
+    parts, ips, peak = train_loop(
+        torch, lambda i: tr.train_step(xn, *dev_labels), b)
+    launches = dict(K.LAUNCHES)
+    st = clock.stages()
+    clock.close()
+    check_launches(launches, (), f'{name} (no hand kernel)')
+    totals = [q['total'] for q in parts]
+    mb = b * p * m * 4 / 1e6
+    print(f'[irn_train] {name}: IRNet {backbone} at crop {crop}, batch {b}, '
+          f'radius {tr.path_index.radius} (P {p}, M {m}: each label tensor '
+          f'[{b},{p},{m}] f32 {mb:.1f} MB, the pair displacement '
+          f'[{b},2,{p},{m}] {2 * mb:.1f} MB), {TRAIN_STEPS} steps on one '
+          f'batch: {ips:.2f} img/s; ms a step: trunk forward '
+          f'{st["trunk_forward"]:.2f}, heads forward '
+          f'{st["heads_forward"]:.2f}, to_affinity_sliced + losses '
+          f'{st["losses"]:.2f}, backward {st["backward"]:.2f}, optimizer '
+          f'{st["optimizer"]:.2f}; on the host apart from the step: '
+          f'affinity_labels for {b} images {1e3 * host_s:.1f} ms, '
+          f'host-to-card copy {1e3 * copy_s:.1f} ms (a step '
+          f'{1e3 * b / ips:.1f} ms); peak memory {peak:.2f} GiB; totals '
+          f'{[round(v, 5) for v in totals]} ({smi})')
+    check(all(np.isfinite(v) for q in parts for v in q.values()),
+          f'{name}: a non-finite loss {parts}')
+    check(totals[-1] < totals[0], f'{name}: the loss did not fall {totals}')
+    check(all(torch.equal(v, trunk0[k])
+              for k, v in tr.net.trunk.state_dict().items()),
+          f'{name}: the trunk moved')
+    return launches, ips
+
+
+def phase_irn_train_card_vs_cpu(torch, smi):
+    """The displacement-mean calibration, then one IRNTrainer step, of
+    vgg16 and of m7 at batch 2, crop 64, on the card and on the CPU from
+    the same weights and batch."""
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.methods import irnet
+    from wsss_tpu_torch.methods.gradcam_cues import _normalizer
+    from wsss_tpu_torch.models.backbones import init_random
+    spec = registry.get('VOC2012')
+    crop, n_seg = IRN_TRAIN_CHECK, spec.n_seg_classes
+    K.reset_launch_counts()
+    for backbone in ('vgg16', 'm7'):
+        trs = {dev: irnet.IRNTrainer(backbone, crop_size=crop,
+                                     device=dev) for dev in ('cuda', 'cpu')}
+        ref = trs['cpu']
+        ref.init(torch.Generator().manual_seed(4))
+        init_random(ref.net.trunk, torch.Generator().manual_seed(5))
+        trs['cuda'].net.load_state_dict(ref.net.state_dict())
+        imgs, labels, _ = irn_train_batch(22, 2, crop, n_seg,
+                                          ref.path_index)
+        out = {}
+        for dev, tr in trs.items():
+            xn = _normalizer(spec.norm_irn, dev)(
+                torch.from_numpy(imgs).to(dev, torch.float32))
+            disp_mean = tr.calibrate_disp_mean([xn])
+            total = float(tr.train_step(xn, *labels)['total'])
+            out[dev] = (total, {k: v.detach().cpu()
+                                for k, v in tr.net.state_dict().items()},
+                        disp_mean)
+        (l_gpu, p_gpu, d_gpu), (l_cpu, p_cpu, d_cpu) = out['cuda'], \
+            out['cpu']
+        err = max(float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_gpu)
+        derr = float(np.abs(d_gpu - d_cpu).max())
+        print(f'[irn_train] card_vs_cpu {backbone}, one step at batch 2, '
+              f'crop {crop}: loss {l_gpu:.6f} vs {l_cpu:.6f} (rtol '
+              f'{TRAIN_LOSS_RTOL}), max |dparam| {err:.3e} (tolerance '
+              f'{TRAIN_PARAM_ATOL}); disp_mean {d_gpu} vs {d_cpu}, max '
+              f'|diff| {derr:.3e} (tolerance {IRN_DISP_MEAN_TOL}) ({smi})')
+        check(abs(l_gpu - l_cpu) <= TRAIN_LOSS_RTOL * abs(l_cpu),
+              f'irn_train {backbone} loss differs between card and CPU')
+        check(err <= TRAIN_PARAM_ATOL,
+              f'irn_train {backbone} parameters differ between card and CPU')
+        check(derr <= IRN_DISP_MEAN_TOL,
+              f'irn_train {backbone} disp_mean differs between card and CPU')
+    launches = dict(K.LAUNCHES)
+    check_launches(launches, (), 'irn_train_card_vs_cpu')
+    return {'irn_train_card_vs_cpu': launches}
+
+
+def phase_irn_train(torch, smi, handle):
+    """irn_train_voc (vgg16 on the irn_voc classifier, crop 320),
+    irn_train_adp (m7 on an ADP-morph X1.7 classifier of seed 2, crop
+    224: the edge logits' antialiased resize and its backward), then the
+    card against the CPU.  Returns ({path: launches}, {path: img/s})."""
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.methods.gradcam_cues import _ClassifierHandle
+    paths, ips = {}, {}
+    voc = registry.get('VOC2012')
+    paths['irn_train_voc'], ips['irn_train_voc'] = irn_train_path(
+        torch, smi, 'irn_train_voc', 'vgg16', voc, handle.model,
+        SIZE // 16 * 16)
+    adp = registry.get('ADP-morph')
+    x17 = _ClassifierHandle.random('X1.7', 51, adp.clf_size_m7, seed=2)
+    paths['irn_train_adp'], ips['irn_train_adp'] = irn_train_path(
+        torch, smi, 'irn_train_adp', 'm7', adp, x17.model,
+        adp.clf_size_m7 // 16 * 16)
+    del x17
+    torch.cuda.empty_cache()
+    paths.update(phase_irn_train_card_vs_cpu(torch, smi))
+    return paths, ips
+
+
+# --- the whole chain --------------------------------------------------------
+PARITY_N = 16
+
+
+def phase_parity(torch, smi):
+    """cli.parity.main in its synthetic smoke mode on the card in a
+    temporary working directory: VOC2012, VGG16 at 321^2, 01 -> 02 ->
+    03a -> 03b -> 03c; a report row for each method with its mIoU in [0,
+    1]; the v2 kernels (HSN, SEC/DSRG prediction) and K11 (03b's
+    cam_to_ir_label) launched."""
+    import os
+    import tempfile
+    from wsss_tpu_torch.cli import parity
+    from wsss_tpu_torch.eval import baseline
+    cwd = os.getcwd()
+    try:
+        with MissingWriters('parity'), \
+                tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            rows, text, dt, launches = run_cli(torch, parity.main, [
+                '--datasets', 'VOC2012', '--models', 'vgg16',
+                '--synthetic_n', str(PARITY_N), '--clf_epochs', '1'])
+            os.chdir(cwd)                 # before the directory goes
+    finally:
+        os.chdir(cwd)
+    check(sorted(r['method'] for r in rows) == sorted(baseline.METHODS)
+          and all(r['split'] == 'val' and 0.0 <= r['miou'] <= 1.0
+                  for r in rows), f'parity rows {rows}')
+    check_launches(launches, V2_KERNELS + SCATTER, 'parity')
+    print(f'[parity] cli.parity.main smoke mode, VOC2012 VGG16 at {SIZE}^2, '
+          f'{PARITY_N} synthetic images: {dt:.2f} s wall in-process; '
+          f'mIoU ' + ', '.join(f'{r["method"]} {r["miou"]:.5f}'
+                               for r in rows)
+          + f'; launches {launches} ({smi})')
+    return {'parity': launches}
 
 
 def phase_irn(torch, smi):
@@ -2857,8 +3127,13 @@ def phase_irn(torch, smi):
     flat_color_blur at irn_voc's own grid)."""
     paths, handle, net, ips, cases = phase_irn_voc(torch, smi)
     paths.update(phase_irn_card_vs_cpu(torch, smi, handle, net))
-    paths.update(phase_cli_irn(torch, smi, net, ips))
-    del handle, net
+    del net
+    train_paths, train_ips = phase_irn_train(torch, smi, handle)
+    paths.update(train_paths)
+    ips.update(train_ips)
+    del handle
+    torch.cuda.empty_cache()
+    paths.update(phase_cli_irn(torch, smi, ips))
     torch.cuda.empty_cache()
     paths.update(phase_irn_adp(torch, smi))
     return paths, cases
@@ -2896,6 +3171,9 @@ def main():
     for name, cases in irn_cases.items():
         results[name]['cases'].update(cases)
     print(f'[time] irn done at {time.perf_counter() - t_start:.0f} s')
+    torch.cuda.empty_cache()
+    paths.update(phase_parity(torch, smi))
+    print(f'[time] parity done at {time.perf_counter() - t_start:.0f} s')
     print(f'[time] all paths done at {time.perf_counter() - t_start:.0f} s')
     from wsss_tpu_torch.kernels import build
     sources = build.sources()

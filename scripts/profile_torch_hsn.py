@@ -20,7 +20,9 @@ path's two stages under the bf16 opt-ins (bf16 classifiers, bf16 CRF
 state), and the train steps of chip_smoke.py's train phase (``train``:
 VGG16 classifier, SEC, DSRG, batch 8 at 321^2, one step a call), and
 IRNet's 03b stages on one 375x500 image (``irn``: make_cam, the ir-label
-CRF, the edge inference, make_sem_seg with its random walk).
+CRF, the edge inference, make_sem_seg with its random walk), and the
+IRNet train steps of chip_smoke.py's irn_train paths (``irn_train``:
+vgg16 at crop 320, m7 at crop 224, batch 8, one step a call).
 ``--only`` picks sections.  Prints per stage: host wall ms per
 call, device kernel ms per call, the device's idle share of the window, the device time by
 kernel group and the top kernels.  The idle share is 1 - (union of the
@@ -314,7 +316,41 @@ def profile_irn(torch, gen):
             edge, d, 'VOC2012', IRN_VOC_HW, exp_times=exp_times), 1)), {})
 
 
-SECTIONS = ('main', 'sec', 'irn_label', 'adp', 'cues', 'train', 'irn')
+def profile_irn_train(torch, gen):
+    """chip_smoke.py's irn_train paths, one IRNTrainer step a call at
+    batch 8 on its synthetic batch: vgg16 at crop 320 on the irn_voc
+    classifier's trunk, m7 at crop 224 on an ADP X1.7 classifier's."""
+    from chip_smoke import TRAIN_STEPS, irn_train_batch
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.methods import irnet
+    from wsss_tpu_torch.methods.gradcam_cues import (_ClassifierHandle,
+                                                     _normalizer)
+    from wsss_tpu_torch.models.transplant import transplant_classifier_trunk
+    stages = []
+    for name, dataset, model, n_out, seed, backbone, crop in (
+            ('irn_train_voc', 'VOC2012', 'VGG16', 20, 0, 'vgg16', 320),
+            ('irn_train_adp', 'ADP-morph', 'X1.7', 51, 2, 'm7', 224)):
+        spec = registry.get(dataset)
+        clf = _ClassifierHandle.random(model, n_out, SIZE, seed=seed)
+        tr = irnet.IRNTrainer(backbone, crop_size=crop,
+                              max_step=TRAIN_STEPS)
+        tr.init(torch.Generator().manual_seed(1))
+        transplant_classifier_trunk(clf.model, tr.net, backbone)
+        imgs, labels, _ = irn_train_batch(21, BATCH, crop,
+                                          spec.n_seg_classes, tr.path_index)
+        x = _normalizer(spec.norm_irn, 'cuda')(
+            torch.from_numpy(imgs).to('cuda', torch.float32))
+        dev = [torch.from_numpy(a).to('cuda') for a in labels]
+        stages.append((name, lambda tr=tr, x=x, dev=dev: tr.train_step(
+            x, *dev), ITERS))
+    out = profile_stages(torch, stages, {})
+    for name, _, _ in stages:
+        out[name + '_img_per_s'] = BATCH / (out[name]['wall_ms'] / 1e3)
+    return out
+
+
+SECTIONS = ('main', 'sec', 'irn_label', 'adp', 'cues', 'train', 'irn',
+            'irn_train')
 
 
 def main():
@@ -364,7 +400,8 @@ def main():
         out['img_per_s'] = BATCH / (out['segment_batch']['wall_ms'] / 1e3)
     for section, fn in (('sec', profile_sec), ('irn_label', profile_irn_label),
                         ('adp', profile_adp), ('cues', profile_cues),
-                        ('train', profile_train), ('irn', profile_irn)):
+                        ('train', profile_train), ('irn', profile_irn),
+                        ('irn_train', profile_irn_train)):
         if section in only:
             out.update(fn(torch, gen))
     print(json.dumps(out))

@@ -8,9 +8,13 @@ synthetic data and random weights), wall clock with the start-up.
 Prints one line per command (its wall seconds and exit code) after the
 card's name and power limit, and a JSON line of all of them last.  The
 training commands come first (1 epoch each), so the SEC prediction
-restores the SEC checkpoint they wrote; IRNet's five inference passes
-(``cli.irn``) restore a random IRNet checkpoint this script writes first
-(untimed: IRNet training is not ported yet).
+restores the SEC checkpoint they wrote; ``cli.irn`` runs all six passes
+(``--passes all``, the default: 16 images, two train_irn steps at batch
+8, no checkpoint written beforehand); ``cli.parity`` runs last in its
+synthetic smoke mode on the classifier triplet trained first
+(``--skip_train``), without 03a: on a machine without matplotlib 01's ROC
+plot and 03a's confusion heatmap stop a new process (``chip_smoke.py``'s
+parity phase runs the whole chain in-process with stand-ins for them).
 Exits non-zero if any command fails.
 """
 import json
@@ -21,7 +25,6 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-IRN_PASSES = 'make_cam,eval_cam,cam_to_ir_label,make_sem_seg,eval_sem_seg'
 
 COMMANDS = [
     ('train_classifier VOC2012', ['train_classifier', '--dataset',
@@ -39,25 +42,14 @@ COMMANDS = [
                       '--saveimg']),
     ('sec_dsrg predict SEC', ['sec_dsrg', '--task', 'predict', '--method',
                               'SEC', '--saveimg']),
-    ('irn VOC2012 5 passes', ['irn', '--dataset', 'VOC2012', '--model',
-                              'VGG16', '--passes', IRN_PASSES]),
+    ('irn VOC2012 --passes all', ['irn', '--dataset', 'VOC2012',
+                                  '--model', 'VGG16']),
     ('extract_eval', ['extract_eval']),
     ('rename_runs --dry_run', ['rename_runs', 'eval', '--dry_run']),
+    ('parity VOC2012 smoke', ['parity', '--datasets', 'VOC2012',
+                              '--models', 'vgg16', '--skip_train',
+                              '--skip_methods', 'sec,dsrg']),
 ]
-
-
-def write_irn_checkpoint(cwd):
-    """A random vgg16 IRNet (seed 1) where cli.irn's make_sem_seg
-    restores it: <cwd>/irn_work/IRN_VOC2012_VGG16/irn_ckpt."""
-    sys.path.insert(0, ROOT)
-    import torch
-    from wsss_tpu_torch.io import checkpoint
-    from wsss_tpu_torch.models.backbones import init_random
-    from wsss_tpu_torch.models.irn import IRNet
-    net = init_random(IRNet('vgg16'), torch.Generator().manual_seed(1))
-    checkpoint.save_checkpoint(
-        os.path.join(cwd, 'irn_work', 'IRN_VOC2012_VGG16', 'irn_ckpt'), 0,
-        {'variables': net.state_dict(), 'disp_mean': torch.zeros(2)})
 
 
 def main():
@@ -71,7 +63,6 @@ def main():
         [ROOT] + ([env['PYTHONPATH']] if env.get('PYTHONPATH') else []))
     times, failed = {}, False
     with tempfile.TemporaryDirectory() as cwd:
-        write_irn_checkpoint(cwd)
         for label, cmd in COMMANDS:
             argv = [sys.executable, '-m', f'wsss_tpu_torch.cli.{cmd[0]}']
             t0 = time.perf_counter()

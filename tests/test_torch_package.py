@@ -146,6 +146,17 @@ def test_entry_points_default_to_cuda(tmp_path):
         irn.main(['--dataset', 'DeepGlobe', '--model', 'M7', '--img_size',
                   '16', '--synthetic_n', '2', '--passes', 'make_cam',
                   '--work_root', str(tmp_path)])
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        irnet.IRNTrainer('m7', crop_size=32)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        irn.main(['--dataset', 'DeepGlobe', '--model', 'M7', '--img_size',
+                  '32', '--synthetic_n', '2', '--batchsize', '2',
+                  '--passes', 'train_irn', '--work_root', str(tmp_path)])
+    from wsss_tpu_torch.cli import parity
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        parity.main(['--datasets', 'DeepGlobe', '--models', 'alt',
+                     '--img_size', '16', '--synthetic_n', '2',
+                     '--eval_root', str(tmp_path / 'eval')])
 
 
 def test_kernel_wrappers_take_cpu_or_cuda_only():

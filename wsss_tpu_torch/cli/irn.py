@@ -1,22 +1,20 @@
-"""CLI of the port: 03b — IRNet's inference passes (counterpart of
+"""CLI of the port: 03b — the IRNet pipeline (counterpart of
 ``wsss_tpu/cli/irn.py``): make_cam -> eval_cam -> cam_to_ir_label ->
-make_sem_seg -> eval_sem_seg.  Runs on ``--device`` (default the card); on
+train_irn -> make_sem_seg -> eval_sem_seg, and ``--tune``, the
+reference's grid search over conf_fg_thres then exp_times
+(demo_tune.py:45-95).  Runs on ``--device`` (default the card); on
 synthetic data when no devkit is given, with a random classifier unless
 ``--model_root`` holds its triplet:
 
-    python -m wsss_tpu_torch.cli.irn --dataset VOC2012 --model VGG16 \\
-        --passes make_cam,eval_cam,cam_to_ir_label,make_sem_seg,eval_sem_seg
+    python -m wsss_tpu_torch.cli.irn --dataset VOC2012 --model VGG16
 
 Intermediate artifacts keep the reference's on-disk contract (.npy cam
 dicts, ir-label PNGs) under ``--work_root/IRN_<dataset>_<model>``.
-make_sem_seg restores the IRNet from the latest checkpoint under the
-run's ``irn_ckpt`` directory: a ``torch.save`` file of ``{'variables':
-IRNet.state_dict(), 'disp_mean': tensor [2]}`` (``io.checkpoint``; an
-orbax checkpoint of the JAX package does not load), and raises
-FileNotFoundError without one.  IRNet training (the ``train_irn`` pass,
-which ``--passes all`` includes, and ``--tune``, which trains) is not
-ported yet: asking for it raises NotImplementedError before any pass runs
-(ROADMAP queue 1 item 6b); the flags that configure training come with it.
+train_irn writes the IRNet to the run's ``irn_ckpt`` directory as a
+``torch.save`` file of ``{'variables': IRNet.state_dict(), 'disp_mean':
+tensor [2]}`` at step 0 (``io.checkpoint``; a re-run overwrites it), and
+make_sem_seg restores it; an orbax checkpoint of the JAX package does not
+load, and make_sem_seg raises FileNotFoundError without one.
 """
 from __future__ import annotations
 
@@ -33,10 +31,12 @@ from wsss_tpu_torch.eval import metrics, reports
 from wsss_tpu_torch.io import artifacts, checkpoint
 from wsss_tpu_torch.methods import irnet
 from wsss_tpu_torch.methods.gradcam_cues import _normalizer
+from wsss_tpu_torch.models.backbones import init_random
 from wsss_tpu_torch.models.irn import IRNet, edge_displacement_inference
 from wsss_tpu_torch.ops.crf.config import IRN_TUNED
 from wsss_tpu_torch.ops.filters import resize_nearest
 from wsss_tpu_torch.utils.device import resolve_device
+from wsss_tpu_torch.utils.timing import profile_trace
 
 
 def _spec_and_htt(args):
@@ -158,6 +158,113 @@ def run_cam_to_ir_label(args, dirs) -> None:
     print(f'[cam_to_ir_label] wrote {n} label maps -> {dirs["ir_label"]}')
 
 
+def affinity_example(img, lab, args, crop, path_index, n_classes, rng):
+    """One (img, (bg_pos, fg_pos, neg)) training example, mirroring
+    VOC12AffinityDataset (voc12/dataloader.py:255-321) as the reference's
+    CLI builds it: the image arrives resized; optional random rescale,
+    the shared-coin horizontal flip, the shared-box random crop or the
+    top-left crop, then the /4 label reduction feeding
+    ``affinity_labels``.  img: [H,W,3] uint8; lab: [H,W] int (255 =
+    ignore); rng: the run's numpy Generator, drawn in the reference's
+    order."""
+    from wsss_tpu_torch.data import augment
+    rescale = (tuple(float(v) for v in args.rescale_range.split(','))
+               if args.rescale_range else None)
+    if rescale:
+        img, lab = augment.random_scale([img, lab], rescale, (3, 0), rng)
+    if not args.irn_no_flip:
+        img, lab = augment.random_lr_flip([img, lab], rng)
+    if args.crop_method == 'random':
+        img, lab = augment.random_crop([img, lab], crop, (0, 255), rng)
+    else:
+        img = img[:crop, :crop]
+        lab = lab[:crop, :crop]
+    g = crop // 4
+    lab4 = augment.pil_rescale(lab, 0.25, 0)[:g, :g]
+    return img, irnet.affinity_labels(lab4, path_index, n_classes)
+
+
+def run_train_irn(args, dirs):
+    """train_irn (train_irn.py:14-168): the heads on the classifier's
+    transplanted trunk, then the displacement-mean calibration; writes
+    the checkpoint make_sem_seg restores.  Returns the trainer."""
+    spec, htt = _spec_and_htt(args)
+    size = common.input_size(args)
+    dev = resolve_device(args.device)
+    crop = args.irn_crop_size or (size // 16 * 16)
+    backbone = 'vgg16' if args.model.startswith('VGG') else 'm7'
+    norm = _normalizer(spec.norm_irn, dev)
+    ds, _ = common.get_batches(args, args.train_split, crop)
+    n_imgs = len(ds)
+    max_step = max(1, (n_imgs // args.batchsize) * args.irn_epochs)
+    if args.rescale_range and args.crop_method != 'random':
+        raise SystemExit('--rescale_range requires --crop_method random '
+                         '(the reference only combines them, '
+                         'func_sample.py:147-148)')
+    tr = irnet.IRNTrainer(backbone, crop, lr=args.irn_lr, max_step=max_step, device=dev)
+    tr.init(torch.Generator().manual_seed(0))
+    if args.irn_random_trunk:
+        init_random(tr.net.trunk, torch.Generator().manual_seed(0))
+    else:
+        # pour the trained classifier into the frozen trunk
+        # (net/common_cnn.py:25-42 semantics; see models/transplant.py)
+        from wsss_tpu_torch.models.transplant import \
+            transplant_classifier_trunk
+        n_out = (51 if args.model == 'X1.7' else
+                 (31 if htt else spec.n_fg_classes))
+        handle = common.load_handle(args, n_out, size)
+        transplant_classifier_trunk(handle.model, tr.net, backbone)
+        del handle
+    from PIL import Image
+    from wsss_tpu_torch.data import augment
+    rng = np.random.default_rng(11)
+
+    def load_label(name, hw):
+        path = os.path.join(dirs['ir_label'], name + '.png')
+        if os.path.exists(path):
+            lab = np.asarray(Image.open(path)).astype(np.int64)
+            return augment.pil_resize(lab, hw, 0)
+        return np.full(hw, 255, np.int64)
+
+    def to_dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    with profile_trace(args.profile_dir):
+        for epoch in range(args.irn_epochs):
+            # shuffle=True per epoch (train_irn.py:81-82 DataLoader
+            # contract); an incomplete batch is dropped
+            for b in prefetch(ds.batches(args.batchsize, shuffle=True)):
+                if b.images.shape[0] != args.batchsize:
+                    continue
+                pairs = [affinity_example(
+                    b.images[i], load_label(name, b.images[i].shape[:2]),
+                    args, crop, tr.path_index, spec.n_seg_classes, rng)
+                    for i, name in enumerate(b.names)]
+                imgs = norm(to_dev(np.stack([p[0] for p in pairs]))
+                            .to(torch.float32))
+                bg, fg, ng = (to_dev(np.stack(z))
+                              for z in zip(*[p[1] for p in pairs]))
+                parts = tr.train_step(imgs, bg, fg, ng)
+                if args.verbose:
+                    print('  irn loss %.4f' % float(parts['total']))
+        # displacement mean calibration over the whole infer split
+        # (train_irn.py:152-165; drop_last=True DataLoader contract),
+        # streamed a batch at a time
+        def infer_batches():
+            for b in ds.batches(args.batchsize):
+                if b.images.shape[0] == args.batchsize:
+                    yield norm(to_dev(b.images[:, :crop, :crop])
+                               .to(torch.float32))
+        disp_mean = (tr.calibrate_disp_mean(infer_batches())
+                     if n_imgs >= args.batchsize else np.zeros(2, np.float32))
+    checkpoint.save_checkpoint(
+        dirs['irn_ckpt'], 0,
+        {'variables': tr.net.state_dict(),
+         'disp_mean': torch.from_numpy(disp_mean)})
+    print(f'[train_irn] trained; disp_mean={disp_mean}')
+    return tr
+
+
 def run_make_sem_seg(args, dirs) -> None:
     spec, htt = _spec_and_htt(args)
     size = common.input_size(args)
@@ -233,8 +340,54 @@ def run_eval_sem_seg(args, dirs) -> float:
 PASSES = ['make_cam', 'eval_cam', 'cam_to_ir_label', 'train_irn',
           'make_sem_seg', 'eval_sem_seg']
 RUNS = {'make_cam': run_make_cam, 'eval_cam': run_eval_cam,
-        'cam_to_ir_label': run_cam_to_ir_label,
+        'cam_to_ir_label': run_cam_to_ir_label, 'train_irn': run_train_irn,
         'make_sem_seg': run_make_sem_seg, 'eval_sem_seg': run_eval_sem_seg}
+
+
+def tune(args, dirs, run_name) -> None:
+    """demo_tune.py:45-95: sweep conf_fg_thres at the dataset's initial
+    exp_times (CFG init_exp_times, demo_tune.py:14-23), then sweep
+    exp_times over EXP_RNG excluding the initial value (quirk kept:
+    demo_tune.py:79 filters it out, so init_exp cannot be re-chosen).
+    Every trial is logged as a row of tuning_logs/<run>.tsv in the
+    working directory (demo_tune.py:50,68,87-88)."""
+    os.makedirs('tuning_logs', exist_ok=True)
+    tsv = os.path.join('tuning_logs', run_name + '.tsv')
+    with open(tsv, 'a') as f:
+        f.write('dataset\tmodel\tconf_fg_thres\texp_times\t'
+                'validation miou\n')
+
+    def log_trial(th, exp, miou):
+        with open(tsv, 'a') as f:
+            f.write(f'{args.dataset}\t{args.model}\t{th:.1f}\t{exp}\t'
+                    f'{miou:f}\n')
+
+    init_exp = args.exp_times
+    run_make_cam(args, dirs)
+    best_th, best_miou = None, -1.0
+    for th in (0.3, 0.5, 0.7):      # THRES_RNG, demo_tune.py:24
+        args.conf_fg_thres = th
+        run_cam_to_ir_label(args, dirs)
+        run_train_irn(args, dirs)
+        args.exp_times = init_exp
+        run_make_sem_seg(args, dirs)
+        miou = run_eval_sem_seg(args, dirs)
+        log_trial(th, init_exp, miou)
+        if miou > best_miou:
+            best_th, best_miou = th, miou
+    args.conf_fg_thres = best_th
+    run_cam_to_ir_label(args, dirs)
+    run_train_irn(args, dirs)
+    best_exp, best_exp_miou = init_exp, best_miou
+    for exp in [x for x in range(1, 9) if x != init_exp]:  # EXP_RNG
+        args.exp_times = exp
+        run_make_sem_seg(args, dirs)
+        miou = run_eval_sem_seg(args, dirs)
+        log_trial(best_th, exp, miou)
+        if miou > best_exp_miou:
+            best_exp, best_exp_miou = exp, miou
+    print(f'[tune] best conf_fg_thres={best_th} '
+          f'exp_times={best_exp} miou={best_exp_miou:.5f}')
 
 
 def main(argv=None):
@@ -252,6 +405,27 @@ def main(argv=None):
                         '(demo_sem_seg.py:8-18)')
     p.add_argument('--conf_bg_thres', type=float, default=0.05)
     p.add_argument('--irn_crop_size', type=int, default=0)
+    p.add_argument('--profile_dir', default=None,
+                   help='torch.profiler Chrome trace output dir of '
+                        'train_irn')
+    p.add_argument('--irn_epochs', type=int, default=1)
+    p.add_argument('--irn_lr', type=float, default=0.1)
+    p.add_argument('--crop_method', default=None,
+                   choices=[None, 'random', 'top_left'],
+                   help='affinity-crop mode; the vgg16/m7 configs use '
+                        'outsize resize (None), resnet50 uses random '
+                        '(func_sample.py:131-148)')
+    p.add_argument('--rescale_range', default=None,
+                   help='e.g. 0.5,1.5 — random_scale range for affinity '
+                        'training (resnet50 config, func_sample.py:148)')
+    p.add_argument('--irn_no_flip', action='store_true',
+                   help='disable the shared hor_flip of image+ir_label '
+                        '(reference trains with hor_flip=True, '
+                        'train_irn.py:29)')
+    p.add_argument('--irn_random_trunk', action='store_true',
+                   help='skip loading the trained classifier into the '
+                        'frozen trunk (debug only; the reference always '
+                        'transplants, net/common_cnn.py:25-42)')
     p.add_argument('--beta', type=float, default=10.0)
     p.add_argument('--exp_times', type=int, default=None,
                    help='default: the tuned per-dataset value')
@@ -267,15 +441,6 @@ def main(argv=None):
                         '79-93, make_sem_seg_labels.py:121-140)')
     args = p.parse_args(argv)
 
-    passes = PASSES if args.passes == 'all' else args.passes.split(',')
-    if args.tune or 'train_irn' in passes:
-        raise NotImplementedError(
-            ('--tune trains IRNet, which' if args.tune else
-             'the train_irn pass (in --passes all too)')
-            + ' is not ported yet (ROADMAP queue 1 item 6b); run '
-            '--passes make_cam,eval_cam,cam_to_ir_label,make_sem_seg,'
-            'eval_sem_seg with an IRNet checkpoint under irn_ckpt')
-
     # tuned hyperparameter defaults (demo_sem_seg.py:8-18)
     tuned = IRN_TUNED.get((args.dataset, args.model), (0.5, 8))
     if args.conf_fg_thres is None:
@@ -283,12 +448,18 @@ def main(argv=None):
     if args.exp_times is None:
         args.exp_times = tuned[1]
 
-    root = os.path.join(args.work_root, f'IRN_{args.dataset}_{args.model}')
+    run_name = f'IRN_{args.dataset}_{args.model}'
+    root = os.path.join(args.work_root, run_name)
     dirs = {k: os.path.join(root, k)
             for k in ('cam', 'ir_label', 'sem_seg', 'irn_ckpt', 'eval')}
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
 
+    if args.tune:
+        tune(args, dirs, run_name)
+        return
+
+    passes = PASSES if args.passes == 'all' else args.passes.split(',')
     result = {}
     for ps in passes:
         r = RUNS[ps](args, dirs)

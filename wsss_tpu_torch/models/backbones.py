@@ -337,7 +337,8 @@ def build_classifier(model_type: str, num_classes: int,
 def init_random(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """flax's default initialisation, drawn from ``generator``: LeCun
     truncated-normal conv and dense kernels, zero biases (where a layer
-    has one), BN scale 1 / bias 0 with running mean 0 / var 1."""
+    has one), BN scale 1 / bias 0 with running mean 0 / var 1, GroupNorm
+    scale 1 / bias 0."""
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.Linear)):
             fan_in = mod.weight[0].numel()
@@ -348,6 +349,6 @@ def init_random(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.weight.copy_(w)
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, nn.BatchNorm2d):
+        elif isinstance(mod, (nn.BatchNorm2d, nn.GroupNorm)):
             mod.reset_parameters()
     return model
