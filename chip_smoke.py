@@ -161,6 +161,33 @@ Phases, in order; any failure exits non-zero and prints no result:
                matplotlib or h5py): a report row for each of the five
                methods with its mIoU in [0, 1], the v2 kernels and K11
                launched, the wall time;
+     mesh    — the multi-device inference path on Mesh([cuda:0, cuda:0],
+               ('data',)), two shards on the one card (times measure
+               what banding costs, not scaling): mesh_hsn (the main
+               path's segment_batch(mesh=) at batch 8: K1-K3 launched 11
+               times a shard, labels against each shard's images on one
+               device >= MESH_LABEL_FLOOR, img/s beside one device's;
+               then K1-K3 held against their plain versions at a
+               shard's B 4, case mesh_hsn_b4_c21);
+               mesh_cues (the VOC cue generator over 16 images through
+               mesh_batches' prefetch thread: the unsharded cues, no
+               hand kernel); mesh_grid (mxu_sharded.mean_field_sharded
+               on a seeded 2448^2 image at hsn_config('DeepGlobe'), 2
+               bands of 1240 + 2 x 320 rows, K1-K3 on each band, against
+               the single-device grid: MESH_GRID_Q_TOL, labels; then
+               K1-K3 held against their plain versions on the last
+               band's grid at C 5 and C 1 and on the single-device grid,
+               cases mesh_grid_c5 / _c1 / _one_c5);
+               mesh_window (sharded.mean_field_sharded at 2448^2 at the
+               VOC M7 config against the single-device window: |dQ| <=
+               MESH_WINDOW_Q_TOL, labels equal; by the cut a soft Q, and
+               bands that got no halo far off); mesh_walk
+               (propagate_to_edge_sharded on a (2, 1) mesh at n = 11 750
+               against propagate_to_edge within MESH_WALK_TOL, ms and
+               TFLOP/s, make_sem_seg labels equal); mesh_cli (cli.gen_cues,
+               cli.hsn, cli.irn make_cam -> make_sem_seg with --mesh auto
+               write the files of --mesh none; cli.train_classifier
+               --mesh auto is refused before writing);
  13. result  — one JSON line of kernels, then the last line
                {"ok": true, "device": {...}}.
 Every path is driven with the launch counts set to 0 just before it and
@@ -337,6 +364,38 @@ def hold_v2_kernels(torch, K, geo, x, label):
     return errs, ref_s, ref_b, g_sp, ref_l
 
 
+def v2_cases(torch, K, geo, x, label):
+    """hold_v2_kernels on one geometry, then each kernel's time there (a
+    call, and on the device) and its bound: ({name: case}, the spatially
+    blurred grid and the plain slice, for a yardstick)."""
+    errs, ref_s, _, g_sp, ref_l = hold_v2_kernels(torch, K, geo, x, label)
+    t, gy, gx, gc, cell = geo.t, geo.gy, geo.gx, geo.gc, geo.cell
+    gbytes = ref_s.numel() * 4
+    rows4 = torch.cat([r.reshape(-1) for r, _ in
+                       K.corner_rows(cell, t, gy, gx, gc ** 3)])
+    touched = int(torch.unique(rows4).numel())
+    runs = {
+        'bilateral_splat': (
+            lambda: K.bilateral_splat(x, cell, t, gy, gx, gc),
+            bound_ms(x.numel() * 4 + cell.numel() * 4 + gbytes,
+                     4 * 3 * x.numel())),
+        'bilateral_color_blur': (
+            lambda: K.bilateral_color_blur(ref_s, geo.taps),
+            bound_ms(2 * gbytes, 3 * 9 * ref_s.numel())),
+        'bilateral_slice': (
+            lambda: K.bilateral_slice(g_sp, cell, t),
+            bound_ms(touched * x.shape[-1] * 4 + cell.numel() * 4
+                     + ref_l.numel() * 4, 7 * ref_l.numel()))}
+    cases = {}
+    for name, (fn, (bb, bf)) in runs.items():
+        r = cases[name] = dict(
+            max_abs_err=errs[name], ms=cuda_ms(torch, fn),
+            device_ms=burst_ms(torch, fn), bound_ms=bb, bound_by=bf)
+        print(f'[kernels] {name} {label}: {r["ms"]:.4f} ms{bursts(r)}, '
+              f'bound {bb:.4f} ms ({bf})')
+    return cases, g_sp, ref_l
+
+
 def slice_library(torch, K, cell, t, gy, gx, gc, g_sp):
     """One torch.sparse.mm (CSR) that computes the slice: a [pixels,
     grid rows] matrix of the 4 corner weights a pixel, times the grid
@@ -464,42 +523,24 @@ def phase_kernels(torch):
         x = torch.rand(tuple(guide.shape[:3]) + (c,), generator=gen,
                        device=dev)
         label = f'B=1 {guide.shape[1]}x{guide.shape[2]} C={c}'
-        errs, ref_s, _, g_sp, ref_l = hold_v2_kernels(torch, K, geo, x,
-                                                      label)
-        gbytes = ref_s.numel() * 4
-        rows4 = torch.cat([r.reshape(-1) for r, _ in
-                           K.corner_rows(cell, t, gy, gx, gc ** 3)])
-        touched = int(torch.unique(rows4).numel())
-        case = {
-            'bilateral_splat': (
-                lambda: K.bilateral_splat(x, cell, t, gy, gx, gc),
-                bound_ms(x.numel() * 4 + cell.numel() * 4 + gbytes,
-                         4 * 3 * x.numel())),
-            'bilateral_color_blur': (
-                lambda: K.bilateral_color_blur(ref_s, geo.taps),
-                bound_ms(2 * gbytes, 3 * 9 * ref_s.numel())),
-            'bilateral_slice': (
-                lambda: K.bilateral_slice(g_sp, cell, t),
-                bound_ms(touched * c * 4 + cell.numel() * 4
-                         + ref_l.numel() * 4, 7 * ref_l.numel()))}
-        for name, (fn, (bb, bf)) in case.items():
-            r = results[name]['cases'][f'sec_v2_c{c}'] = dict(
-                max_abs_err=errs[name], ms=cuda_ms(torch, fn),
-                device_ms=burst_ms(torch, fn), bound_ms=bb, bound_by=bf)
-            if name == 'bilateral_slice' and c == 21:
-                # the slice's yardstick at SEC's shape too: it launches
-                # the slice twice as often as the main path does
-                slice_lib, _ = slice_library(torch, K, cell, t, gy, gx, gc,
-                                             g_sp)
-                lib_err = float((slice_lib().view(ref_l.shape)
-                                 - ref_l).abs().max())
-                check(lib_err <= 1e-5 * float(ref_l.abs().max()),
-                      f'sparse.mm yardstick at SEC\'s shape computes '
-                      f'another function ({lib_err})')
-                r.update(library_ms=cuda_ms(torch, slice_lib),
-                         library_device_ms=burst_ms(torch, slice_lib))
-            print(f'[kernels] {name} {label}: {r["ms"]:.4f} ms{bursts(r)}, '
-                  f'bound {bb:.4f} ms ({bf})')
+        cases, g_sp, ref_l = v2_cases(torch, K, geo, x, label)
+        for name, r in cases.items():
+            results[name]['cases'][f'sec_v2_c{c}'] = r
+        if c == 21:
+            # the slice's yardstick at SEC's shape too: it launches the
+            # slice twice as often as the main path does
+            slice_lib, _ = slice_library(torch, K, cell, t, gy, gx, gc,
+                                         g_sp)
+            lib_err = float((slice_lib().view(ref_l.shape)
+                             - ref_l).abs().max())
+            check(lib_err <= 1e-5 * float(ref_l.abs().max()),
+                  f'sparse.mm yardstick at SEC\'s shape computes another '
+                  f'function ({lib_err})')
+            r = cases['bilateral_slice']
+            r.update(library_ms=cuda_ms(torch, slice_lib),
+                     library_device_ms=burst_ms(torch, slice_lib))
+            print(f'[kernels] bilateral_slice {label}: library (sparse.mm) '
+                  f'{r["library_ms"]:.4f} ms{bursts(r)}')
 
     # the v2 route's largest cube: gc 24 (srgb 255/23), C 32; its planes
     # (74 KB) take a plan of channel groups
@@ -3139,6 +3180,455 @@ def phase_irn(torch, smi):
     return paths, cases
 
 
+# --- multi-device inference on a mesh of shards ------------------------------
+# Two shards on one card (Mesh([cuda:0, cuda:0])): the banding, the halo
+# copies and every kernel of a band run on the card, but nothing runs in
+# parallel, so the times measure what banding costs, not scaling.
+MESH_DEVICE = 'cuda'
+MESH_GRID_HW = 2448          # DeepGlobe's native size
+MESH_WINDOW_HW = 2448
+MESH_WALK_HW = (94, 125)     # irn_voc's walk grid: n = 11 750
+MESH_CLI_SIZE = 0            # --img_size of mesh_cli (0: the model's own)
+MESH_LABEL_FLOOR = 0.999     # K1's float atomics: labels may flip at ties
+MESH_GRID_Q_TOL = 1e-3       # the banded grid against one device, max |dQ|
+MESH_WINDOW_Q_TOL = 2e-4     # the banded window (tests/test_sharded_crf.py)
+MESH_WALK_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_mxu_sharded.py
+
+
+def mesh_device(torch):
+    return (torch.device('cuda', 0) if MESH_DEVICE == 'cuda'
+            else torch.device(MESH_DEVICE))
+
+
+def mesh_problem(hw, c, seed):
+    """A seeded image [hw, hw, 3] of flat 48-px blocks plus noise, and CRF
+    probabilities [hw, hw, C] from 64-px blocks of logits plus noise:
+    regions the CRF settles, so few labels sit at a tie."""
+    rng = np.random.default_rng(seed)
+
+    def blocks(cell, shape, draw):
+        n = hw // cell + 1
+        return np.kron(draw((n, n) + shape),
+                       np.ones((cell, cell) + (1,) * len(shape)))[:hw, :hw]
+
+    img = blocks(48, (3,), lambda s: rng.integers(0, 256, s))
+    img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255)
+    logits = 2 * blocks(64, (c,), rng.standard_normal)
+    logits = logits + rng.standard_normal(logits.shape)
+    probs = np.exp(logits - logits.max(-1, keepdims=True))
+    probs /= probs.sum(-1, keepdims=True)
+    return probs.astype(np.float32), img.astype(np.float32)
+
+
+def mesh_hsn(torch, smi, mesh, fg, bg):
+    """The main path's program on two shards: each runs the whole step on
+    its 4 images (the grid route: the bg max is shard-local)."""
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.methods.hsn import HSNSegmenter
+    spec = registry.get('VOC2012')
+    seg = HSNSegmenter(spec, fg, bg, model_type='VGG16', device=fg.device)
+    check(seg.per_shard(mesh), 'mesh_hsn does not take the per-shard step')
+    imgs = np.random.default_rng(31).integers(
+        0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+    seg.segment_batch(imgs, mesh=mesh)                     # warm-up
+    K.reset_launch_counts()
+    labels, dt = timed(torch, lambda: seg.segment_batch(imgs, mesh=mesh))
+    launches = dict(K.LAUNCHES)
+    check_launches(launches, V2_KERNELS, 'mesh_hsn')
+    want = 2 * (seg.cfg.iterations + 1)      # 11 filters a shard
+    check(launches['bilateral_color_blur'] == want,
+          f'mesh_hsn bilateral_color_blur launched '
+          f'{launches["bilateral_color_blur"]} times, expected {want}')
+    t_mesh, t_one = [dt], []
+    for _ in range(2):
+        t_one.append(timed(torch, lambda: seg.segment_batch(imgs))[1])
+        t_mesh.append(timed(torch, lambda: seg.segment_batch(
+            imgs, mesh=mesh))[1])
+    half = BATCH // 2
+    shards = torch.cat([seg.segment_batch(imgs[:half]),
+                        seg.segment_batch(imgs[half:])])
+    check(labels.shape == (BATCH, SIZE, SIZE) and labels.dtype == torch.int32,
+          f'mesh_hsn labels {tuple(labels.shape)} {labels.dtype}')
+    agree = float((labels == shards).float().mean())
+    whole = float((labels == seg.segment_batch(imgs)).float().mean())
+    ips, ips1 = BATCH / np.median(t_mesh), BATCH / np.median(t_one)
+    print(f'[mesh_hsn] VOC2012 VGG16 fg + bg at {SIZE}^2, batch {BATCH} on '
+          f'{mesh}: {ips:.2f} img/s (median of {len(t_mesh)}), one device '
+          f'{ips1:.2f} img/s (median of {len(t_one)}); launches {launches} '
+          f'({want // 2} filters a shard); labels against each shard\'s '
+          f'images on one device {agree:.6f} (bound {MESH_LABEL_FLOOR}), '
+          f'against the whole batch on one device (global bg max) '
+          f'{whole:.6f} ({smi})')
+    check(agree >= MESH_LABEL_FLOOR,
+          f'mesh_hsn labels agree {agree} < {MESH_LABEL_FLOOR}')
+    # K1-K3 against their plain versions at a shard's shape: the main
+    # path's geometry at B 4 (counted apart from the launches read above)
+    from wsss_tpu_torch.ops.crf import mxu_grid
+    from wsss_tpu_torch.ops.crf.meanfield import MXU_CELL_MULT
+    gen = torch.Generator(device=fg.device).manual_seed(32)
+    guide = path_guide(torch, 'hsn', gen)[:half]
+    geo = mxu_grid.MXUBilateralGrid(guide, 8.0, 13.0, 21,
+                                    cell_mult=MXU_CELL_MULT)
+    check(geo.v2 and (geo.t, geo.gy, geo.gx, geo.gc) == (8, 9, 9, 16),
+          f'mesh_hsn shard geometry {(geo.v2, geo.t, geo.gy, geo.gx, geo.gc)}')
+    x = torch.rand((half, GUIDE, GUIDE, 21), generator=gen,
+                   device=fg.device)
+    cases = v2_cases(torch, K, geo, x,
+                     f'mesh_hsn shard B={half} {GUIDE}x{GUIDE} C=21')[0]
+    return launches, {name: {f'mesh_hsn_b{half}_c21': r}
+                      for name, r in cases.items()}
+
+
+def mesh_grid(torch, smi, mesh):
+    """mxu_sharded.mean_field_sharded on one DeepGlobe-sized image at
+    hsn_config('DeepGlobe') (bi_sxy 40: t 40, halo 320) against the
+    single-device grid mean field at the same geometry (full resolution,
+    colour cells of srgb)."""
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.ops.crf import config, meanfield, mxu_sharded
+    cfg = config.hsn_config('DeepGlobe')
+    c = registry.get('DeepGlobe').n_fg_classes - 1    # drop_last_class
+    hw = MESH_GRID_HW
+    probs, img = mesh_problem(hw, c, seed=33)
+    dev = mesh_device(torch)
+    probs, img = torch.from_numpy(probs).to(dev), torch.from_numpy(img).to(dev)
+    K.reset_launch_counts()
+    q_sh, dt0 = timed(torch, lambda: mxu_sharded.mean_field_sharded(
+        probs, img, cfg, mesh))
+    launches = dict(K.LAUNCHES)
+    check_launches(launches, V2_KERNELS, 'mesh_grid')
+    want = mesh.shape['data'] * (cfg.iterations + 1)
+    check(launches['bilateral_color_blur'] == want,
+          f'mesh_grid bilateral_color_blur launched '
+          f'{launches["bilateral_color_blur"]} times, expected {want}')
+    dt_sh = timed(torch, lambda: mxu_sharded.mean_field_sharded(
+        probs, img, cfg, mesh))[1]
+    kw = dict(g_sxy=cfg.g_sxy, g_compat=cfg.g_compat, bi_sxy=cfg.bi_sxy,
+              bi_srgb=cfg.bi_srgb, bi_compat=cfg.bi_compat,
+              iterations=cfg.iterations, cell_mult=1.0)
+    prev = meanfield._MXU_DS_DISABLED
+    meanfield._MXU_DS_DISABLED = True       # full resolution, as the bands
+    try:
+        q_1, dt1 = timed(torch, lambda: meanfield._mean_field_mxu(
+            probs[None], img[None], **kw)[0])
+        dt1 = min(dt1, timed(torch, lambda: meanfield._mean_field_mxu(
+            probs[None], img[None], **kw)[0])[1])
+    finally:
+        meanfield._MXU_DS_DISABLED = prev
+    err = float((q_sh - q_1).abs().max())
+    agree = float((q_sh.argmax(-1) == q_1.argmax(-1)).float().mean())
+    t, halo = mxu_sharded._halo_px(cfg.bi_sxy)
+    n = mesh.shape['data']
+    rows = -(-hw // (n * t)) * t
+    print(f'[mesh_grid] {hw}x{hw}, C {c}, {cfg}: {n} bands of {rows} rows '
+          f'+ 2 x {halo} halo = {rows + 2 * halo} (band rows / image rows '
+          f'{n * (rows + 2 * halo) / hw:.3f}); launches {launches} '
+          f'({want // n} filters a band); {1e3 * dt_sh:.1f} ms (first call '
+          f'{1e3 * dt0:.1f}), one device {1e3 * dt1:.1f} ms; max |dQ| '
+          f'{err:.3g} (bound {MESH_GRID_Q_TOL}), labels {agree:.6f} (bound '
+          f'{MESH_LABEL_FLOOR}) ({smi})')
+    check(torch.isfinite(q_sh).all() and q_sh.shape == (hw, hw, c),
+          'mesh_grid Q not finite or misshapen')
+    check(err <= MESH_GRID_Q_TOL and agree >= MESH_LABEL_FLOOR,
+          f'mesh_grid against one device: |dQ| {err}, labels {agree}')
+    # K1-K3 against their plain versions at this path's own shapes, apart
+    # from the launches read above: the last band's grid (it holds the
+    # padded rows) on its message input (Q times the validity) and on the
+    # normalizer's (the validity), and the single-device grid at hw^2
+    from wsss_tpu_torch.ops.crf import mxu_grid
+    from wsss_tpu_torch.ops.crf.sharded import _exchange_halo
+
+    def last_band(x):
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, n * rows - hw))
+        return _exchange_halo([x[i * rows:(i + 1) * rows]
+                               for i in range(n)], halo)[-1][None]
+    v_b = last_band(torch.ones((hw, hw, 1), device=dev))
+    geo = mxu_grid.MXUBilateralGrid(last_band(img), cfg.bi_sxy, cfg.bi_srgb,
+                                    c)
+    check(geo.v2 and geo.bhw == (1, rows + 2 * halo, hw)
+          and (geo.t, geo.gy, geo.gx, geo.gc) == (40, 48, 63, 21),
+          f'mesh_grid band geometry '
+          f'{(geo.v2, geo.bhw, geo.t, geo.gy, geo.gx, geo.gc)}')
+    cases = {}
+    for x, case in ((last_band(probs) * v_b, f'mesh_grid_c{c}'),
+                    (v_b, 'mesh_grid_c1')):
+        label = (f'{case} band {rows + 2 * halo}x{hw} grid '
+                 f'{geo.gy}x{geo.gx}x{geo.gc}^3')
+        for name, r in v2_cases(torch, K, geo, x, label)[0].items():
+            cases.setdefault(name, {})[case] = r
+    geo = mxu_grid.MXUBilateralGrid(img[None], cfg.bi_sxy, cfg.bi_srgb, c,
+                                    cell_mult=1.0)
+    check(geo.v2, 'mesh_grid: the single-device grid left the v2 route')
+    label = (f'mesh_grid_one_c{c} {hw}x{hw} grid '
+             f'{geo.gy}x{geo.gx}x{geo.gc}^3')
+    for name, r in v2_cases(torch, K, geo, probs[None], label)[0].items():
+        cases[name][f'mesh_grid_one_c{c}'] = r
+    return launches, cases
+
+
+def mesh_window(torch, smi, mesh):
+    """sharded.mean_field_sharded at HSN_TEST[('VOC2012', 'M7')] (81
+    offsets, halo 10) against the single-device window and Gaussian
+    message (the oracle of tests/test_sharded_crf.py)."""
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.ops.crf import config, meanfield, sharded
+    from wsss_tpu_torch.parallel.mesh import Mesh
+    cfg = config.HSN_TEST[('VOC2012', 'M7')]
+    hw, c = MESH_WINDOW_HW, 21
+    probs, img = mesh_problem(hw, c, seed=35)
+    dev = mesh_device(torch)
+    probs, img = torch.from_numpy(probs).to(dev), torch.from_numpy(img).to(dev)
+    K.reset_launch_counts()
+    q_sh, dt_sh = timed(torch, lambda: sharded.mean_field_sharded(
+        probs, img, cfg, mesh))
+    launches = dict(K.LAUNCHES)
+    check_launches(launches, (), 'mesh_window')
+
+    filt = meanfield.DirectBilateral(img, cfg.bi_sxy, cfg.bi_srgb)
+
+    def single():
+        U = -torch.log(torch.clamp(probs, min=1e-10))
+        Q = torch.softmax(-U, -1)
+        nb = torch.rsqrt(torch.clamp(filt.filter(
+            torch.ones((hw, hw, 1), device=dev)), min=1e-20))
+        for _ in range(cfg.iterations):
+            mb = nb * filt.filter(nb * Q) - nb * nb * Q
+            mg = meanfield.gaussian_message(Q, cfg.g_sxy)
+            Q = torch.softmax(-U + cfg.g_compat * mg + cfg.bi_compat * mb,
+                              -1)
+        return Q
+
+    q_1, dt1 = timed(torch, single)
+    err = float((q_sh - q_1).abs().max())
+    flips = int((q_sh.argmax(-1) != q_1.argmax(-1)).sum())
+    # what the check can see at the cut: the rows within one halo of it,
+    # how many of them hold a Q that is not saturated, and how far bands
+    # that received no halo rows (each half alone) land from one device
+    n = mesh.shape['data']
+    cut = hw // n
+    halo = 2 * max(int(np.ceil(3 * cfg.bi_sxy)),
+                   max(1, int(np.ceil(4 * cfg.g_sxy))))
+    near = slice(cut - halo, cut + halo)
+    err_near = float((q_sh[near] - q_1[near]).abs().max())
+    soft = float(((q_1[near] > 1e-6) & (q_1[near] < 1 - 1e-6)).any(-1)
+                 .float().mean())
+    one = Mesh([dev], ('data',))
+    q_cut = torch.cat([sharded.mean_field_sharded(
+        probs[i * cut:(i + 1) * cut], img[i * cut:(i + 1) * cut], cfg, one)
+        for i in range(n)])
+    err_cut = float((q_cut[near] - q_1[near]).abs().max())
+    print(f'[mesh_window] {hw}x{hw}, C {c}, {cfg}: {len(filt.offs)} '
+          f'offsets; {1e3 * dt_sh:.1f} ms on {n} bands, one device '
+          f'{1e3 * dt1:.1f} ms; max |dQ| {err:.3g} (bound '
+          f'{MESH_WINDOW_Q_TOL}), within {halo} rows of the cut '
+          f'{err_near:.3g}, {flips} labels differ; pixels there with a Q '
+          f'in (1e-6, 1 - 1e-6) {soft:.4f}; bands without halos: |dQ| '
+          f'{err_cut:.3g} there; no hand kernel ({smi})')
+    check(err <= MESH_WINDOW_Q_TOL and flips == 0,
+          f'mesh_window against one device: |dQ| {err}, {flips} flips')
+    check(soft >= 0.99 and err_cut > 100 * MESH_WINDOW_Q_TOL,
+          f'mesh_window cannot see a halo fault: soft {soft}, bands '
+          f'without halos {err_cut}')
+    return launches
+
+
+def mesh_walk(torch, smi):
+    """propagate_to_edge_sharded on a (2, 1) mesh at irn_voc's walk size
+    against propagate_to_edge; then make_sem_seg(mesh=) against
+    make_sem_seg, labels equal."""
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.methods import irnet
+    from wsss_tpu_torch.ops import random_walk
+    from wsss_tpu_torch.ops.crf.config import IRN_TUNED
+    from wsss_tpu_torch.parallel.mesh import Mesh
+    dev = mesh_device(torch)
+    wmesh = Mesh(np.array([[dev], [dev]], dtype=object), ('data', 'model'))
+    exp = IRN_TUNED[('VOC2012', 'VGG16')][1]
+    h, w = MESH_WALK_HW
+    n = h * w
+    rng = np.random.default_rng(37)
+    cam = rng.random((3, h, w)).astype(np.float32) * 0.3
+    cam[0, :, : w // 3] += 0.7
+    cam[1, :, w // 3:] += 0.5
+    cam[2, h // 2:] += 0.6
+    edge = (rng.random((h, w)) * 0.5).astype(np.float32)
+    edge[:, w // 2] = 0.9
+    cam_t = torch.from_numpy(cam).to(dev)
+    edge_t = torch.from_numpy(edge).to(dev)
+    kw = dict(beta=10.0, exp_times=exp, radius=5)
+    # warm-up: the first call allocates the blocks (cudaMalloc) and reads
+    # 0.8 s on an H100 where a warm one reads ~0.59 s (PERF.md §6)
+    random_walk.propagate_to_edge_sharded(cam_t, edge_t, wmesh, **kw)
+    K.reset_launch_counts()
+    out_sh, dt_sh = timed(torch, lambda: random_walk.propagate_to_edge_sharded(
+        cam_t, edge_t, wmesh, **kw))
+    launches = dict(K.LAUNCHES)
+    check_launches(launches, (), 'mesh_walk')
+    out_1, dt1 = timed(torch, lambda: random_walk.propagate_to_edge(
+        cam_t, edge_t, **kw))
+    err = float((out_sh - out_1).abs().max())
+    close = bool(torch.allclose(out_sh, out_1, **MESH_WALK_TOL))
+    d = {'keys': np.array([0, 2, 4]), 'cam': cam, 'high_res': cam}
+    orig = (375, 500)
+    lab_sh = irnet.make_sem_seg(edge_t, d, 'VOC2012', orig, beta=10.0,
+                                exp_times=exp, mesh=wmesh, device=dev)
+    lab_1 = irnet.make_sem_seg(edge_t, d, 'VOC2012', orig, beta=10.0,
+                               exp_times=exp, device=dev)
+    flops = 2.0 * n ** 3 * exp
+    print(f'[mesh_walk] n {n} ({h}x{w}), exp_times {exp}, on {wmesh}: '
+          f'{1e3 * dt_sh:.1f} ms = {flops / dt_sh / 1e12:.2f} TFLOP/s, one '
+          f'device {1e3 * dt1:.1f} ms = {flops / dt1 / 1e12:.2f} TFLOP/s '
+          f'({flops:.4g} flops); max |d| {err:.3g}, allclose '
+          f'{MESH_WALK_TOL} {close}; make_sem_seg labels equal '
+          f'{bool(np.array_equal(lab_sh, lab_1))} ({smi})')
+    check(close, f'mesh_walk against one device: max |d| {err}')
+    check(np.array_equal(lab_sh, lab_1) and lab_sh.shape == orig,
+          'mesh_walk: make_sem_seg labels differ from one device\'s')
+    return launches
+
+
+def mesh_cues(torch, smi, mesh, fg, bg):
+    """VOCDeepGlobeCueGenerator.run(mesh=) over 16 synthetic VOC images in
+    batches of BATCH, placed by mesh_batches' prefetch thread: the cues
+    equal the unsharded run's; no hand kernel."""
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.data.pipeline import SyntheticWSSS
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.methods.gradcam_cues import VOCDeepGlobeCueGenerator
+    spec = registry.get('VOC2012')
+    gen = VOCDeepGlobeCueGenerator(spec, fg, bg, device=fg.device)
+    ds = SyntheticWSSS('VOC2012', size=SIZE, n_images=16)
+    single = gen.run(ds.batches(BATCH))                     # warm-up
+    K.reset_launch_counts()
+    sharded, dt = timed(torch, lambda: gen.run(ds.batches(BATCH), mesh=mesh))
+    launches = dict(K.LAUNCHES)
+    check_launches(launches, (), 'mesh_cues')
+    dt1 = timed(torch, lambda: gen.run(ds.batches(BATCH)))[1]
+    same = (set(sharded) == set(single)
+            and all(np.array_equal(sharded[k], single[k]) for k in single))
+    print(f'[mesh_cues] 16 VOC images at {SIZE}^2 in batches of {BATCH} on '
+          f'{mesh}: {16 / dt:.2f} img/s, one device {16 / dt1:.2f} img/s; '
+          f'cues equal the unsharded run\'s: {same} ({smi})')
+    check(same, 'mesh_cues: the sharded cues differ from the unsharded')
+    return launches
+
+
+def read_tree(root):
+    """{relative path: contents} of every file under root: the bytes, or
+    for an .xlsx (whose zip entries carry the time of writing) its
+    table."""
+    import os
+    from wsss_tpu_torch.eval import xlsx
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(d, f)
+            if f.endswith('.xlsx'):
+                body = xlsx.read_table_xlsx(path)
+            else:
+                with open(path, 'rb') as fh:
+                    body = fh.read()
+            out[os.path.relpath(path, root)] = body
+    return out
+
+
+def mesh_cli(torch, smi):
+    """cli.gen_cues, cli.hsn and cli.irn (make_cam, cam_to_ir_label,
+    make_sem_seg) with --mesh auto (a one-shard mesh on one card) against
+    --mesh none: the same files; cli.train_classifier --mesh auto raises
+    before writing.  Launches are those of the --mesh auto runs."""
+    import os
+    import shutil
+    import tempfile
+    from wsss_tpu_torch.cli import gen_cues, hsn as hsn_cli, irn as irn_cli
+    from wsss_tpu_torch.cli import train_classifier
+    base = ['--dataset', 'VOC2012', '--model', 'VGG16', '--device',
+            MESH_DEVICE, '--img_size', str(MESH_CLI_SIZE), '--batchsize',
+            str(BATCH)]
+    irn_passes = 'make_cam,cam_to_ir_label,make_sem_seg'
+    runs = {'gen_cues': (gen_cues.main, ['--task', 'gen'], 'cues'),
+            'hsn': (hsn_cli.main, [], 'eval'),
+            'irn': (irn_cli.main, ['--passes', irn_passes], 'irn')}
+    total, secs = {}, {}
+    cwd = os.getcwd()
+    try:
+        with MissingWriters('mesh_cli'), \
+                tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            run_cli(torch, irn_cli.main, base + [      # the IRNet to restore
+                '--passes', 'make_cam,cam_to_ir_label,train_irn',
+                '--work_root', 'irn_none'])
+            ckpt = os.path.join('IRN_VOC2012_VGG16', 'irn_ckpt')
+            shutil.copytree(os.path.join('irn_none', ckpt),
+                            os.path.join('irn_auto', ckpt))
+            for name, (main, extra, root) in runs.items():
+                files = {}
+                for mesh in ('none', 'auto'):
+                    at = f'{root}_{mesh}'
+                    argv = base + extra + ['--mesh', mesh]
+                    argv += {'gen_cues': ['--cues_root', at],
+                             'hsn': ['--eval_root', at],
+                             'irn': ['--work_root', at]}[name]
+                    _, _, dt, launches = run_cli(torch, main, argv)
+                    files[mesh] = {k: v for k, v in read_tree(at).items()
+                                   if 'irn_ckpt' not in k}
+                secs[name] = dt
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+                same = files['none'] == files['auto']
+                print(f'[mesh_cli] cli.{name} --mesh auto: {dt:.2f} s '
+                      f'in-process, {len(files["auto"])} files, equal to '
+                      f'--mesh none\'s: {same}; launches '
+                      f'{ {k: v for k, v in launches.items() if v} } ({smi})')
+                check(same and files['auto'],
+                      f'mesh_cli: cli.{name} --mesh auto wrote other files')
+            os.makedirs('train')
+            os.chdir('train')
+            try:
+                train_classifier.main(base + ['--mesh', 'auto'])
+                refused = False
+            except NotImplementedError as e:
+                refused = 'item 8b' in str(e)
+            written = os.listdir('.')
+            os.chdir(cwd)                 # before the directory goes
+    finally:
+        os.chdir(cwd)
+    print(f'[mesh_cli] cli.train_classifier --mesh auto refused: {refused}, '
+          f'files written: {written}')
+    check(refused and not written,
+          'mesh_cli: train_classifier --mesh auto was not refused cleanly')
+    check_launches(total, V2_KERNELS + SCATTER, 'mesh_cli')
+    return total
+
+
+def phase_mesh(torch, smi):
+    """The multi-device inference path on Mesh([cuda:0, cuda:0]): each
+    case with the launch counts set to 0 just before and read after;
+    returns those counts and K1-K3's cases at the mesh paths' shapes."""
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.methods.gradcam_cues import _ClassifierHandle
+    from wsss_tpu_torch.parallel.mesh import Mesh
+    dev = mesh_device(torch)
+    mesh = Mesh([dev, dev], ('data',))
+    n = registry.get('VOC2012').n_fg_classes
+    fg = _ClassifierHandle.random('VGG16', n, SIZE, seed=0, device=dev)
+    bg = _ClassifierHandle.random('VGG16', n, SIZE, seed=1, device=dev)
+    paths, cases = {}, {}
+    paths['mesh_hsn'], hsn_cases = mesh_hsn(torch, smi, mesh, fg, bg)
+    paths['mesh_cues'] = mesh_cues(torch, smi, mesh, fg, bg)
+    del fg, bg
+    paths['mesh_grid'], grid_cases = mesh_grid(torch, smi, mesh)
+    torch.cuda.empty_cache()
+    for name in V2_KERNELS:
+        cases[name] = dict(hsn_cases[name], **grid_cases[name])
+    paths['mesh_window'] = mesh_window(torch, smi, mesh)
+    paths['mesh_walk'] = mesh_walk(torch, smi)
+    paths['mesh_cli'] = mesh_cli(torch, smi)
+    return paths, cases
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -3174,6 +3664,12 @@ def main():
     torch.cuda.empty_cache()
     paths.update(phase_parity(torch, smi))
     print(f'[time] parity done at {time.perf_counter() - t_start:.0f} s')
+    torch.cuda.empty_cache()
+    mesh_paths, mesh_cases = phase_mesh(torch, smi)
+    paths.update(mesh_paths)
+    for name, cases in mesh_cases.items():
+        results[name]['cases'].update(cases)
+    print(f'[time] mesh done at {time.perf_counter() - t_start:.0f} s')
     print(f'[time] all paths done at {time.perf_counter() - t_start:.0f} s')
     from wsss_tpu_torch.kernels import build
     sources = build.sources()

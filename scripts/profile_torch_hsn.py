@@ -22,7 +22,9 @@ VGG16 classifier, SEC, DSRG, batch 8 at 321^2, one step a call), and
 IRNet's 03b stages on one 375x500 image (``irn``: make_cam, the ir-label
 CRF, the edge inference, make_sem_seg with its random walk), and the
 IRNet train steps of chip_smoke.py's irn_train paths (``irn_train``:
-vgg16 at crop 320, m7 at crop 224, batch 8, one step a call).
+vgg16 at crop 320, m7 at crop 224, batch 8, one step a call), and
+the main path and the walk on a mesh of two shards of the card
+(``mesh``: chip_smoke.py's mesh_hsn and mesh_walk).
 ``--only`` picks sections.  Prints per stage: host wall ms per
 call, device kernel ms per call, the device's idle share of the window, the device time by
 kernel group and the top kernels.  The idle share is 1 - (union of the
@@ -349,8 +351,42 @@ def profile_irn_train(torch, gen):
     return out
 
 
+def profile_mesh(torch, gen):
+    """chip_smoke.py's mesh_hsn and mesh_walk on Mesh([cuda:0, cuda:0]):
+    segment_batch of one host uint8 batch with and without the mesh, and
+    the walk at n = 11 750 on a (2, 1) mesh and on one device."""
+    import numpy as np
+    from chip_smoke import MESH_WALK_HW
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.methods.gradcam_cues import _ClassifierHandle
+    from wsss_tpu_torch.methods.hsn import HSNSegmenter
+    from wsss_tpu_torch.ops import random_walk
+    from wsss_tpu_torch.parallel.mesh import Mesh
+    dev = torch.device('cuda', 0)
+    mesh = Mesh([dev, dev], ('data',))
+    wmesh = Mesh(np.array([[dev], [dev]], dtype=object), ('data', 'model'))
+    spec = registry.get('VOC2012')
+    seg = HSNSegmenter(spec, *(
+        _ClassifierHandle.random('VGG16', spec.n_fg_classes, SIZE, seed=s)
+        for s in (0, 1)), model_type='VGG16')
+    rng = np.random.default_rng(31)
+    host = rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+    cam = torch.from_numpy(rng.random((3,) + MESH_WALK_HW,
+                                      dtype=np.float32)).to(dev)
+    edge = torch.from_numpy(rng.random(MESH_WALK_HW,
+                                       dtype=np.float32) * 0.5).to(dev)
+    return profile_stages(torch, (
+        ('mesh_segment_batch', lambda: seg.segment_batch(host, mesh=mesh),
+         ITERS),
+        ('one_segment_batch', lambda: seg.segment_batch(host), ITERS),
+        ('mesh_walk', lambda: random_walk.propagate_to_edge_sharded(
+            cam, edge, wmesh), 1),
+        ('one_walk', lambda: random_walk.propagate_to_edge(cam, edge), 1)),
+        {})
+
+
 SECTIONS = ('main', 'sec', 'irn_label', 'adp', 'cues', 'train', 'irn',
-            'irn_train')
+            'irn_train', 'mesh')
 
 
 def main():
@@ -401,7 +437,8 @@ def main():
     for section, fn in (('sec', profile_sec), ('irn_label', profile_irn_label),
                         ('adp', profile_adp), ('cues', profile_cues),
                         ('train', profile_train), ('irn', profile_irn),
-                        ('irn_train', profile_irn_train)):
+                        ('irn_train', profile_irn_train),
+                        ('mesh', profile_mesh)):
         if section in only:
             out.update(fn(torch, gen))
     print(json.dumps(out))

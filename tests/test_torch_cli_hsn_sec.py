@@ -317,9 +317,17 @@ def test_cli_entry_points_default_to_cuda_including_training(tmp_path,
             sec_cli.main(argv + train)
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             train_cli.main(argv + train)
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            hsn_cli.main(argv + ['--mesh', 'auto'])
     sec_cli.main(argv + train + ['--device', 'cpu'])
     assert (tmp_path / 'log' / 'SEC_DeepGlobe_M7' / 'train.jsonl').is_file()
     train_cli.main(argv + train + ['--device', 'cpu'])
     assert (tmp_path / 'DeepGlobe_M7' / 'DeepGlobe_M7.npz').is_file()
-    with pytest.raises(SystemExit):
-        hsn_cli.main(argv + ['--mesh', 'auto', '--device', 'cpu'])
+    # --mesh auto on the one CPU: a one-shard mesh, the same csv
+    hsn_cli.main(argv + ['--device', 'cpu'])
+    csv = tmp_path / 'eval' / 'HSN_DeepGlobe_M7' / 'hsn_iou.csv'
+    single = csv.read_text()
+    hsn_cli.main(argv + ['--mesh', 'auto', '--device', 'cpu'])
+    assert csv.read_text() == single
+    with pytest.raises(NotImplementedError, match='item 8b'):
+        train_cli.main(argv + train + ['--device', 'cpu', '--mesh', 'auto'])

@@ -403,10 +403,8 @@ def test_flags_equal_jax_plus_device(monkeypatch):
         if flag in ('-h', '--help'):
             continue
         b = got[flag]
-        assert (b.default, b.type, b.nargs, b.const) == \
-            (a.default, a.type, a.nargs, a.const), flag
-        if flag != '--mesh':             # one device only (departure c)
-            assert b.choices == a.choices, flag
+        assert (b.default, b.type, b.nargs, b.const, b.choices) == \
+            (a.default, a.type, a.nargs, a.const, a.choices), flag
 
 
 def test_make_sem_seg_needs_a_checkpoint(tmp_path):

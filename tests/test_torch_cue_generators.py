@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from test_torch_mesh import cpu_shards  # noqa: F401
 from test_torch_models import perturbed_variables
 from wsss_tpu.cli import gen_cues as jax_cli
 from wsss_tpu.data import registry as jax_registry
@@ -29,12 +30,14 @@ from wsss_tpu.eval import xlsx as jax_xlsx
 from wsss_tpu.io import artifacts as jax_artifacts
 from wsss_tpu.io import checkpoint as jax_ckpt
 from wsss_tpu.methods import gradcam_cues as jax_gc
+from wsss_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from wsss_tpu_torch.cli import gen_cues as cli
 from wsss_tpu_torch.data import registry
 from wsss_tpu_torch.data.pipeline import SyntheticWSSS
 from wsss_tpu_torch.eval import xlsx
 from wsss_tpu_torch.io import artifacts
 from wsss_tpu_torch.methods import gradcam_cues as gc
+from wsss_tpu_torch.parallel.mesh import make_mesh
 
 SIZE, N_IMAGES, BATCH = 64, 8, 4
 
@@ -88,7 +91,7 @@ def test_synthetic_dataset_equals_jax():
 
 
 @pytest.mark.parametrize('dataset', ['VOC2012', 'DeepGlobe'])
-def test_voc_deepglobe_generator_equals_jax(dataset):
+def test_voc_deepglobe_generator_equals_jax(dataset, cpu_shards):
     spec = registry.get(dataset)
     n = spec.n_fg_classes
     j_fg, t_fg = _handles('M7', n, seed=0)
@@ -114,12 +117,21 @@ def test_voc_deepglobe_generator_equals_jax(dataset):
         dataset=dataset)
     np.testing.assert_allclose(iou, iou_j, atol=1e-6)
     assert abs(miou - miou_j) <= 1e-6
-    with pytest.raises(NotImplementedError, match='queue 1 item 8'):
-        t_gen.run(ds.batches(BATCH), mesh=object())
+    # on a mesh of 2 CPU shards (batches of 4 cut in 2): the cues equal
+    # the unsharded run's, and the JAX package's sharded run
+    sharded = t_gen.run(ds.batches(BATCH),
+                        mesh=make_mesh(2, ('data',), device='cpu'))
+    assert set(sharded) == set(got)
+    for k in got:
+        np.testing.assert_array_equal(sharded[k], got[k])
+    compare_cues(sharded, j_gen.run(
+        JaxSynthetic(dataset, size=SIZE, n_images=N_IMAGES).batches(BATCH),
+        mesh=jax_make_mesh(2, ('data',))), spec.n_seg_classes,
+        dataset + ' sharded')
 
 
 @pytest.mark.parametrize('family,n', [('M7', 31), ('X1.7', 51)])
-def test_adp_generator_equals_jax(family, n):
+def test_adp_generator_equals_jax(family, n, cpu_shards):
     jh, th = _handles(family, n, seed=3)
     j_gen = jax_gc.ADPCueGenerator(jh, family, thresh=0.2)
     t_gen = gc.ADPCueGenerator(th, family, thresh=0.2, device='cpu')
@@ -131,6 +143,13 @@ def test_adp_generator_equals_jax(family, n):
     compare_cues(got_f, want_f, 5, f'ADP {family} func')
     for i in range(N_IMAGES):
         assert 1 in got_f[f'{i}_labels']            # 'Other' always
+    # on 3 CPU shards (batches of 4 padded to 6): the unsharded run's cues
+    mesh = make_mesh(3, ('data',), device='cpu')
+    for sharded, single in zip(t_gen.run(ds.batches(BATCH), mesh=mesh),
+                               (got_m, got_f)):
+        assert set(sharded) == set(single)
+        for k in single:
+            np.testing.assert_array_equal(sharded[k], single[k])
     iou, miou = gc.eval_cues_miou(got_m, ds.batches(BATCH, with_gt=True),
                                   29, dataset='ADP-morph', size=SIZE)
     iou_j, miou_j = jax_gc.eval_cues_miou(
@@ -243,9 +262,10 @@ def test_cli_adp_equals_jax(tmp_path, reference_cli, task):
     assert bool(result) == (task == 'eval')   # {} after gen, as the reference
 
 
-def test_cli_thresh_naming_and_val_pickle(tmp_path):
+def test_cli_thresh_naming_and_val_pickle(tmp_path, cpu_shards):
     """The _0.x session-name quirk and the _val pickle of eval splits
-    (02_cues/demo.py:70-71, 320-321); --mesh takes only 'none'."""
+    (02_cues/demo.py:70-71, 320-321); --mesh auto (8 CPU shards, batches
+    of 4 padded to 8) writes the same pickle."""
     argv = ['--dataset', 'DeepGlobe', '--model', 'M7', '--thresh', '0.3',
             '--split', 'val', '--batchsize', '4', '--synthetic_n', '4',
             '--img_size', '32', '--model_root', str(tmp_path / 'none'),
@@ -254,6 +274,11 @@ def test_cli_thresh_naming_and_val_pickle(tmp_path):
     path = tmp_path / 'cues' / 'DeepGlobe_M7_0.3' / \
         'localization_cues_val.pickle'
     with open(path, 'rb') as f:
-        assert len(pickle.load(f)) == 8
-    with pytest.raises(SystemExit):
-        cli.main(argv + ['--mesh', 'auto'])
+        single = pickle.load(f)
+    assert len(single) == 8
+    cli.main(argv + ['--mesh', 'auto'])
+    with open(path, 'rb') as f:
+        sharded = pickle.load(f)
+    assert set(sharded) == set(single)
+    for k in single:
+        np.testing.assert_array_equal(sharded[k], single[k])

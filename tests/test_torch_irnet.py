@@ -12,8 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh as JaxMesh
 
 from test_torch_models import perturbed_variables
+from test_torch_sharded_crf import cpu_mesh
 from test_torch_train_classifier import two_torch_threads  # noqa: F401
 from wsss_tpu.methods import irnet as jirnet
 from wsss_tpu.methods.gradcam_cues import _ClassifierHandle as JHandle
@@ -246,11 +248,59 @@ def test_make_sem_seg_equals_jax(dataset, cam_hw, edge_hw, orig_hw):
     assert e_got.dtype == np.uint8
 
 
-def test_mesh_is_refused():
-    d = {'keys': np.array([1]), 'cam': np.ones((1, 8, 8), np.float32)}
-    with pytest.raises(NotImplementedError, match='item 8'):
-        irnet.make_sem_seg(torch.zeros(8, 8), d, 'VOC2012', (32, 32),
-                           mesh=object(), device='cpu')
+def _sem_seg_problem(cam_hw, edge_hw, seed=7):
+    rng = np.random.default_rng(seed)
+    cam = rng.random((3,) + cam_hw).astype(np.float32) * 0.3
+    cam[0, :, : cam_hw[1] // 3] += 0.7
+    cam[1, :, cam_hw[1] // 3:] += 0.5
+    cam[2, cam_hw[0] // 2:] += 0.6
+    edge = (rng.random(edge_hw) * 0.5).astype(np.float32)
+    edge[:, edge_hw[1] // 2] = 0.9
+    return {'keys': np.array([0, 2, 4]), 'cam': cam, 'high_res': cam}, edge
+
+
+def test_make_sem_seg_on_a_mesh_equals_jax():
+    """The walk's matrix cut over a (2, 1) mesh, as ``--mesh 2`` builds
+    it: labels equal the JAX sharded run's and the port's unsharded
+    run's on >= SEM_FLOOR of the pixels."""
+    d, edge = _sem_seg_problem((16, 16), (16, 16))
+    kw = dict(beta=10.0, exp_times=3, sem_seg_bg_thres=0.3)
+    jmesh = JaxMesh(np.asarray(jax.devices()[:2]).reshape(2, 1),
+                    ('data', 'model'))
+    want = jirnet.make_sem_seg(jnp.asarray(edge), d, 'VOC2012', (64, 62),
+                               mesh=jmesh, **kw)
+    got = irnet.make_sem_seg(torch.from_numpy(edge), d, 'VOC2012', (64, 62),
+                             mesh=cpu_mesh((2, 1), ('data', 'model')),
+                             device='cpu', **kw)
+    single = irnet.make_sem_seg(torch.from_numpy(edge), d, 'VOC2012',
+                                (64, 62), device='cpu', **kw)
+    assert got.dtype == np.uint8 and got.shape == want.shape == (64, 62)
+    assert (got == want).mean() >= SEM_FLOOR
+    assert (got == single).mean() >= SEM_FLOOR
+    assert len(np.unique(got)) > 1
+
+
+def test_make_cam_batch_on_a_mesh_equals_jax():
+    """3 images of 56x64 cut over 2 shards (padded to 4), VOC VGG16 at
+    64^2, scale 1.0: against the JAX sharded run and the port's
+    unsharded one, within CAM_TOL."""
+    th = np.where(np.arange(20) % 2 == 0, 0.0, 1.01).astype(np.float32)
+    jh, th_ = _handles('VGG16', 20, 64, seed=0, thresholds=th)
+    from wsss_tpu.data import registry as jreg
+    jci = jirnet.CAMInference(jh, jreg.get('VOC2012'), 'VGG16',
+                              scales=(1.0,))
+    ci = irnet.CAMInference(th_, registry.get('VOC2012'), 'VGG16',
+                            scales=(1.0,), device='cpu')
+    imgs = np.random.default_rng(1).uniform(
+        0, 255, (3, 56, 64, 3)).astype(np.float32)
+    jmesh = JaxMesh(np.asarray(jax.devices()[:2]), ('data',))
+    got = ci.make_cam_batch(imgs, None, mesh=cpu_mesh((2,), ('data',)))
+    want = jci.make_cam_batch(imgs, None, mesh=jmesh)
+    single = ci.make_cam_batch(imgs, None)
+    assert len(got) == 3
+    for i, (g, w, s_) in enumerate(zip(got, want, single)):
+        _hold_cam(g, w, f'mesh, image {i}')
+        _hold_cam(g, s_, f'mesh against one device, image {i}')
 
 
 def test_cam_to_ir_label_at_adp_native_size_raises_as_jax():

@@ -5,8 +5,9 @@ and batches.
 Mirrors the reference's layered config (SURVEY.md §5.6): settings.ini for
 roots (settings.ini:1-7), argparse per stage, and the dataclass registry
 for everything per-dataset.  Two departures: ``--device`` (default
-'cuda') picks the card or, asked for, the CPU; ``--mesh`` takes only
-'none' until the multi-device path is ported (ROADMAP queue 1 item 8).
+'cuda') picks the card or, asked for, the CPU; the training command lines
+refuse a ``--mesh`` other than 'none' (``refuse_mesh``) until
+data-parallel training is ported (ROADMAP queue 1 item 8b).
 """
 from __future__ import annotations
 
@@ -52,13 +53,42 @@ def add_common_args(p: argparse.ArgumentParser):
                    help='synthetic dataset size when no devkit exists')
     p.add_argument('--img_size', type=int, default=0,
                    help='override input size (0 = per-model default)')
-    p.add_argument('--mesh', default='none', choices=['none'],
-                   help="device mesh: only 'none' (one device) so far")
+    p.add_argument('--mesh', default='none',
+                   help="device mesh for multi-device runs: 'none' "
+                        "(single device), 'auto' (all visible devices of "
+                        "--device's type), or an integer device count "
+                        "(at most the visible ones).  Replaces the "
+                        "reference's per-GPU process spawn "
+                        "(make_cam.py:120-122, SURVEY.md §2.8) with one "
+                        "process over a parallel.mesh.Mesh.  Training "
+                        "takes only 'none' so far.")
     p.add_argument('--device', default='cuda',
                    help="torch device: 'cuda' (default; raises without a "
                         "card) or 'cpu'")
     p.add_argument('--verbose', action='store_true')
     return p
+
+
+def get_mesh(args):
+    """Resolve --mesh into a ``parallel.mesh.Mesh`` over --device's type
+    (or None)."""
+    v = getattr(args, 'mesh', 'none')
+    if not v or v == 'none':
+        return None
+    from wsss_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(None if v == 'auto' else int(v),
+                     device=getattr(args, 'device', 'cuda'))
+
+
+def refuse_mesh(args, what: str) -> None:
+    """Training runs on one device until the reference's data-parallel
+    putters (``dp_train_putters``) are ported: refuse any other --mesh
+    before anything is written."""
+    v = getattr(args, 'mesh', 'none')
+    if v and v != 'none':
+        raise NotImplementedError(
+            f'{what} with --mesh {v}: data-parallel training is not ported '
+            'yet (ROADMAP queue 1 item 8b); pass --mesh none')
 
 
 def input_size(args) -> int:

@@ -48,7 +48,8 @@ def main(argv=None):
         gen = gc.ADPCueGenerator(handle, args.model, thresh=args.thresh,
                                  device=handle.device)
         ds, batches = common.get_batches(args, args.split, size)
-        out_m, out_f = gen.run(batches, verbose=args.verbose)
+        out_m, out_f = gen.run(batches, verbose=args.verbose,
+                               mesh=common.get_mesh(args))
         for htt, out in (('morph', out_m), ('func', out_f)):
             path = os.path.join(cues_dir, htt, 'localization_cues.pickle')
             artifacts.write_cue_pickle(path, out)
@@ -86,7 +87,8 @@ def main(argv=None):
     gen = gc.VOCDeepGlobeCueGenerator(spec, fg, bg, thresh=args.thresh,
                                       device=fg.device)
     ds, batches = common.get_batches(args, args.split, size)
-    out = gen.run(batches, verbose=args.verbose)
+    out = gen.run(batches, verbose=args.verbose,
+                  mesh=common.get_mesh(args))
     # train-style splits (train / train_aug / train75 / train37.5) get
     # the training-cue name consumed by 03a (02_cues/demo.py:217-222);
     # eval splits get the _val name (demo.py:320-321)

@@ -9,6 +9,9 @@ holds the triplets:
 
     python -m wsss_tpu_torch.cli.hsn --dataset VOC2012
     python -m wsss_tpu_torch.cli.hsn --dataset ADP-morph --model X1.7
+
+``--mesh auto|N`` cuts every batch over a device mesh; the prefetch
+thread places the next batch while the current one is segmented.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from wsss_tpu_torch.eval import metrics, reports
 from wsss_tpu_torch.methods import hsn
 from wsss_tpu_torch.ops.crf import config as crf_config
 from wsss_tpu_torch.ops.filters import resize_nearest
+from wsss_tpu_torch.parallel.mesh import mesh_batches
 
 
 def _to_gt_size(pred: torch.Tensor, gt_hw) -> torch.Tensor:
@@ -53,6 +57,7 @@ def main(argv=None):
     size = common.input_size(args)
     sid = 'HSN_' + common.sess_id(args, args.set_name)
     out_dir = os.path.join(args.out_root, sid)
+    mesh = common.get_mesh(args)
 
     if args.dataset.startswith('ADP'):
         handle = common.load_handle(
@@ -70,9 +75,12 @@ def main(argv=None):
             ds, batches = common.get_batches(args, split, size,
                                              with_gt=True, htt=htt)
             conf = np.zeros((spec.n_seg_classes,) * 2, np.int64)
-            for b in batches:
-                lm, lf = seg.segment_batch(b.images)
-                pred = lm if htt == 'morph' else lf
+            # prefetch-placed batches: the upload overlaps the previous
+            # batch's segment step
+            for b, (ims,), b0 in mesh_batches(mesh, batches,
+                                              lambda b: (b.images,)):
+                lm, lf = seg.segment_batch(ims, mesh=mesh)
+                pred = (lm if htt == 'morph' else lf)[:b0]
                 if b.gt is not None:
                     conf = metrics.accumulate_confusion(
                         conf, _to_gt_size(pred, b.gt.shape[1:]),
@@ -103,8 +111,8 @@ def main(argv=None):
                            device=fg.device)
     ds, batches = common.get_batches(args, args.split, size, with_gt=True)
     conf = np.zeros((spec.n_seg_classes,) * 2, np.int64)
-    for b in batches:
-        pred = seg.segment_batch(b.images)
+    for b, (ims,), b0 in mesh_batches(mesh, batches, lambda b: (b.images,)):
+        pred = seg.segment_batch(ims, mesh=mesh)[:b0]
         if b.gt is not None:
             # eval at native GT resolution (03c_hsn/demo.py:233-269
             # compares against the full-size masks)

@@ -75,11 +75,13 @@ def run_make_cam(args, dirs) -> None:
     ci = irnet.CAMInference(handle, spec, args.model, scales=scales,
                             adp_htt=htt, device=args.device)
     ds, _ = common.get_batches(args, args.train_split, size)
+    mesh = common.get_mesh(args)
     n = 0
     # native-size batched MSF: the reference keeps each image's geometry
     # (make_cam.py:41-42); batching groups identical shapes
     for names, imgs, tags in _native_shape_groups(ds, args.batchsize):
-        for name, d in zip(names, ci.make_cam_batch(imgs, tags)):
+        for name, d in zip(names, ci.make_cam_batch(imgs, tags,
+                                                    mesh=mesh)):
             artifacts.write_cam_npy(
                 os.path.join(dirs['cam'], name + '.npy'),
                 d['keys'], d['cam'], d.get('high_res'))
@@ -278,6 +280,7 @@ def run_make_sem_seg(args, dirs) -> None:
     disp_mean = state['disp_mean']
     norm = _normalizer(spec.norm_irn, dev)
     ds, _ = common.get_batches(args, args.infer_split, size)
+    mesh = common.get_mesh(args)
     from wsss_tpu_torch.data import augment
     n = 0
     for b in prefetch(ds.iter_native()):
@@ -295,7 +298,7 @@ def run_make_sem_seg(args, dirs) -> None:
             edge, d, args.dataset, b.images[0].shape[:2],
             beta=args.beta, exp_times=args.exp_times,
             sem_seg_bg_thres=args.sem_seg_bg_thres,
-            walk_downsample=args.walk_downsample, device=dev)
+            walk_downsample=args.walk_downsample, mesh=mesh, device=dev)
         reports.save_png(os.path.join(dirs['sem_seg'], name + '.png'), pred)
         if getattr(args, 'saveimg', False):
             # colorized + overlay (make_sem_seg_labels.py:121-140)
@@ -432,7 +435,8 @@ def main(argv=None):
     p.add_argument('--sem_seg_bg_thres', type=float, default=0.25)
     p.add_argument('--walk_downsample', type=int, default=6,
                    help='DeepGlobe pre-walk downsample (reference /6, '
-                        'make_sem_seg_labels.py:101-104)')
+                        'make_sem_seg_labels.py:101-104); lower it when '
+                        'sharding the walk over a mesh')
     p.add_argument('--tune', action='store_true',
                    help='demo_tune.py grid: conf_fg_thres then exp_times')
     p.add_argument('--saveimg', action='store_true',
@@ -448,6 +452,9 @@ def main(argv=None):
     if args.exp_times is None:
         args.exp_times = tuned[1]
 
+    passes = PASSES if args.passes == 'all' else args.passes.split(',')
+    if args.tune or 'train_irn' in passes:
+        common.refuse_mesh(args, 'train_irn')
     run_name = f'IRN_{args.dataset}_{args.model}'
     root = os.path.join(args.work_root, run_name)
     dirs = {k: os.path.join(root, k)
@@ -459,7 +466,6 @@ def main(argv=None):
         tune(args, dirs, run_name)
         return
 
-    passes = PASSES if args.passes == 'all' else args.passes.split(',')
     result = {}
     for ps in passes:
         r = RUNS[ps](args, dirs)

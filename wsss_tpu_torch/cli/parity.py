@@ -7,7 +7,8 @@ lines — 01 classifier training, 02 Grad-CAM cue generation + cue eval,
 collects every mIoU, and diffs against the published tables
 (``eval/baseline.py``) with a ±budget acceptance band.  ``--device``
 (default the card) is forwarded to every stage; ``--mesh`` takes only
-'none' (one device).
+'none' until data-parallel training is ported (ROADMAP queue 1 item 8b),
+since the reference forwards it to the training stages too.
 
 With no devkit under --data_root it runs end-to-end on synthetic data
 (smoke mode): every stage executes and the report is produced, but the
@@ -204,7 +205,10 @@ def main(argv=None):
     p.add_argument('--skip_methods', default='',
                    help='comma list from sec,dsrg,irnet,histosegnet')
     p.add_argument('--mesh', default='none', choices=['none'],
-                   help="device mesh: only 'none' (one device) so far")
+                   help="device mesh: only 'none' (one device) until "
+                        "data-parallel training is ported, as the "
+                        "reference forwards --mesh to its training "
+                        "stages too")
     p.add_argument('--device', default='cuda',
                    help="torch device forwarded to every stage: 'cuda' "
                         "(default; raises without a card) or 'cpu'")

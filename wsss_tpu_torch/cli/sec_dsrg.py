@@ -237,6 +237,8 @@ def main(argv=None):
     p.add_argument('--profile_dir', default=None,
                    help='profiler trace output dir')
     args = p.parse_args(argv)
+    if args.task == 'train':
+        common.refuse_mesh(args, 'sec_dsrg --task train')
 
     spec = registry.get(args.dataset)
     n_cls = spec.n_seg_classes

@@ -63,6 +63,7 @@ def main(argv=None):
                    help='write a torch.profiler trace of the train steps '
                         'here')
     args = p.parse_args(argv)
+    common.refuse_mesh(args, 'train_classifier')
 
     spec = registry.get(args.dataset)
     size = common.input_size(args)

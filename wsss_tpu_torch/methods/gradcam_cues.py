@@ -14,11 +14,17 @@ Flavors:
     adp_cues.py:244-339).
 
 Handles build their classifier at ``models.backbones.infer_dtype()``:
-float32 unless WSSS_TPU_BF16_INFER asks for bfloat16.  ``run`` takes no
-mesh yet (the reference's data-parallel path, ROADMAP queue 1 item 8).
+float32 unless WSSS_TPU_BF16_INFER asks for bfloat16.  ``run(mesh=)``
+cuts each batch over the mesh's 'data' axis (``parallel.mesh``), one
+replica of the handles per distinct device.  VOC / DeepGlobe's cue
+threshold takes a per-class max over the whole batch, so their shards'
+seed CAMs are gathered onto the first shard's device before the cues are
+made, as the reference's GSPMD program reduces over the global batch: the
+cues equal the unsharded run's.
 """
 from __future__ import annotations
 
+import copy
 import os
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -33,6 +39,7 @@ from wsss_tpu_torch.models.backbones import (build_classifier, infer_dtype,
 from wsss_tpu_torch.ops import cues as cue_ops
 from wsss_tpu_torch.ops import gradcam as gc_ops
 from wsss_tpu_torch.ops.filters import resize_bilinear
+from wsss_tpu_torch.parallel.mesh import map_shards, mesh_batches, on_device
 from wsss_tpu_torch.utils.device import resolve_device
 
 SEED_SIZE = 41  # 02_cues/demo.py:65
@@ -66,6 +73,19 @@ class _ClassifierHandle:
             model.features, model.head_logits, (input_size, input_size),
             self.device)
 
+    def to(self, device) -> '_ClassifierHandle':
+        """This handle on ``device``: itself where it lives there, else a
+        copy of its model, thresholds and Grad-CAM weights."""
+        dev = resolve_device(device)
+        if dev == self.device:
+            return self
+        h = copy.copy(self)
+        h.device = dev
+        h.model = copy.deepcopy(self.model).to(dev)
+        h.thresholds = self.thresholds.to(dev)
+        h.weights = self.weights.to(dev)
+        return h
+
     @classmethod
     def random(cls, model_type: str, num_classes: int, input_size: int,
                seed: int = 0, thresholds=0.5, device='cuda'):
@@ -96,13 +116,6 @@ def _to(x, device) -> torch.Tensor:
     return torch.as_tensor(x).to(device, torch.float32, non_blocking=True)
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            'run(mesh=...) is not ported yet (ROADMAP queue 1 item 8); '
-            'pass mesh=None')
-
-
 class VOCDeepGlobeCueGenerator:
     """Cue generation for VOC2012 (fg+bg nets) and DeepGlobe (fg only) on
     one device; the handles must live on that device."""
@@ -131,21 +144,40 @@ class VOCDeepGlobeCueGenerator:
         cams = gc_ops.grad_cam(feats, handle.weights, is_pass)
         return resize_bilinear(cams, (self.seed_size,) * 2), is_pass
 
+    def _cams(self, imgs_raw, gt_tags):
+        """(fg seed CAMs, bg seed CAMs or None, is_pass) of a batch."""
+        x = self._norm(_to(imgs_raw, self.device))
+        tags = _to(gt_tags, self.device)
+        h_fg, is_pass = self._run_net(self.fg, x, tags)
+        h_bg = (self._run_net(self.bg, x, tags)[0] if self.bg is not None
+                else None)
+        return h_fg, h_bg, is_pass
+
+    def _cues(self, h_fg, h_bg) -> torch.Tensor:
+        if h_bg is not None:
+            return cue_ops.fgbg_cues(h_fg, h_bg, self.thresh)
+        return cue_ops.fg_cues(h_fg, self.thresh)
+
     @torch.no_grad()
     def generate_batch(self, imgs_raw, gt_tags
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """imgs_raw: [B,S,S,3] 0..255 RGB; gt_tags: [B,C_fg] (numpy or
         tensors).  Returns (one-hot cues bool [B,41,41,C_seg], is_pass
         bool [B,C_fg]) on the device."""
-        x = self._norm(_to(imgs_raw, self.device))
-        tags = _to(gt_tags, self.device)
-        h_fg, is_pass = self._run_net(self.fg, x, tags)
-        if self.bg is not None:
-            h_bg, _ = self._run_net(self.bg, x, tags)
-            onehot = cue_ops.fgbg_cues(h_fg, h_bg, self.thresh)
-        else:
-            onehot = cue_ops.fg_cues(h_fg, self.thresh)
-        return onehot, is_pass
+        h_fg, h_bg, is_pass = self._cams(imgs_raw, gt_tags)
+        return self._cues(h_fg, h_bg), is_pass
+
+    @torch.no_grad()
+    def _generate_sharded(self, mesh, imgs, tags, b0):
+        """generate_batch over a batch cut on ``mesh``: each shard's seed
+        CAMs on its device, gathered onto the first shard's (B x 41 x 41
+        x C), where the cues take their threshold's max over the whole
+        batch, as the reference's GSPMD program does."""
+        def cams(d, x, t):
+            h_fg, h_bg, is_pass = self._on(d)._cams(x, t)
+            return (h_fg, is_pass) if h_bg is None else (h_fg, is_pass, h_bg)
+        h_fg, is_pass, *h_bg = map_shards(mesh, cams, imgs, tags, b0=b0)
+        return self._cues(h_fg, h_bg[0] if h_bg else None), is_pass
 
     def class_inds(self, is_pass: np.ndarray) -> List[np.ndarray]:
         """'{i}_labels' values (02_cues/demo.py:205-208): VOC offsets fg
@@ -153,13 +185,24 @@ class VOCDeepGlobeCueGenerator:
         off = 1 if self.spec.uses_bg_net else 0
         return [np.where(np.asarray(p))[0] + off for p in is_pass]
 
+    def _on(self, device) -> 'VOCDeepGlobeCueGenerator':
+        return on_device(self, device, lambda d: VOCDeepGlobeCueGenerator(
+            self.spec, self.fg.to(d), None if self.bg is None
+            else self.bg.to(d), self.thresh, self.seed_size, device=d))
+
     def run(self, batches, verbose: bool = False,
             mesh=None) -> Dict[str, np.ndarray]:
-        """Full-split cue generation -> pickle-format dict."""
-        _no_mesh(mesh)
+        """Full-split cue generation -> pickle-format dict.  mesh: each
+        batch is cut over its 'data' axis, placed ahead by the prefetch
+        thread of ``mesh_batches``."""
         out: Dict[str, np.ndarray] = {}
-        for b in batches:
-            onehot, is_pass = self.generate_batch(b.images, b.tags)
+        for b, (imgs, tags), b0 in mesh_batches(
+                mesh, batches, lambda b: (b.images, b.tags)):
+            if mesh is not None:
+                onehot, is_pass = self._generate_sharded(mesh, imgs, tags,
+                                                         b0)
+            else:
+                onehot, is_pass = self.generate_batch(imgs, tags)
             artifacts.pack_cues(onehot.cpu().numpy(),
                                 self.class_inds(is_pass.cpu().numpy()),
                                 list(b.indices), out)
@@ -182,6 +225,7 @@ class ADPCueGenerator:
         self.handle = handle
         self.thresh = thresh
         self.seed_size = seed_size
+        self.model_family = model_family
         self.maps = registry.adp_index_maps(model_family)
         self.morph_spec = registry.get('ADP-morph')
         self.func_spec = registry.get('ADP-func')
@@ -263,14 +307,25 @@ class ADPCueGenerator:
                   for i in range(p31.shape[0])]
         return m_inds, f_inds
 
+    def _on(self, device) -> 'ADPCueGenerator':
+        return on_device(self, device, lambda d: ADPCueGenerator(
+            self.handle.to(d), self.model_family, self.thresh,
+            self.seed_size, device=d))
+
     def run(self, batches, verbose: bool = False, mesh=None
             ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
-        """Full-split cue generation -> (morph, func) pickle dicts."""
-        _no_mesh(mesh)
+        """Full-split cue generation -> (morph, func) pickle dicts; mesh as
+        in ``VOCDeepGlobeCueGenerator.run``."""
         out_m: Dict[str, np.ndarray] = {}
         out_f: Dict[str, np.ndarray] = {}
-        for b in batches:
-            oh_m, oh_f, is_pass = self.generate_batch(b.images)
+        for b, (imgs,), b0 in mesh_batches(mesh, batches,
+                                           lambda b: (b.images,)):
+            if mesh is not None:
+                oh_m, oh_f, is_pass = map_shards(
+                    mesh, lambda d, x: self._on(d).generate_batch(x), imgs,
+                    b0=b0)
+            else:
+                oh_m, oh_f, is_pass = self.generate_batch(imgs)
             m_inds, f_inds = self.class_inds(is_pass.cpu().numpy())
             artifacts.pack_cues(oh_m.cpu().numpy(), m_inds,
                                 list(b.indices), out_m)

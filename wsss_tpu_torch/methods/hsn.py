@@ -8,7 +8,14 @@ Quirks of the reference kept:
   * VOC's bg channel is 0.15 * sigmoid(max(X_bg) - X_bg), X_bg the sum of
     the bg net's CAMs, the max taken over the whole batch passed in;
   * DeepGlobe drops the classifier's last class (drop_last_class).
-The mesh path of the reference is not ported yet.
+
+``segment_batch(imgs, mesh=)`` cuts the batch over the mesh's 'data' axis
+(``parallel.mesh``), one replica of each classifier per distinct device.
+Where the reference runs its fused per-shard step (the CRF takes the grid,
+``_mxu_ok``, and no other mesh axis is larger than 1) every shard runs the
+whole step on its images, so VOC's bg max is shard-local, as in the
+reference's per-GPU processes; otherwise the max stays global over the
+batch, as under the reference's GSPMD program.
 """
 from __future__ import annotations
 
@@ -22,7 +29,8 @@ from wsss_tpu_torch.methods.gradcam_cues import _ClassifierHandle, _normalizer
 from wsss_tpu_torch.ops import cues as cue_ops
 from wsss_tpu_torch.ops import gradcam as gc_ops
 from wsss_tpu_torch.ops.crf import config as crf_config
-from wsss_tpu_torch.ops.crf.meanfield import mean_field
+from wsss_tpu_torch.ops.crf.meanfield import _mxu_ok, mean_field
+from wsss_tpu_torch.parallel.mesh import map_shards, on_device, shard_batch
 from wsss_tpu_torch.utils.device import resolve_device
 
 HSN_THRESHOLD = 1.0 / 3.0
@@ -57,28 +65,77 @@ class HSNSegmenter:
             feats, handle.weights, scores >= HSN_THRESHOLD, scores,
             upsample_hw=(size, size))
 
-    @torch.no_grad()
-    def probs(self, imgs: torch.Tensor) -> torch.Tensor:
-        """CAM stage: f32 RGB images [B,S,S,3] 0..255 on the device ->
-        CRF unaries [B,S,S,C]."""
+    def _on(self, device) -> 'HSNSegmenter':
+        return on_device(self, device, lambda d: HSNSegmenter(
+            self.spec, self.fg.to(d),
+            None if self.bg is None else self.bg.to(d), cfg=self.cfg,
+            drop_last_class=self.drop_last_class, device=d))
+
+    def _fg_bg(self, imgs: torch.Tensor):
+        """(fg CAMs [B,S,S,C_fg], X_bg [B,S,S] or None)."""
         x = self._norm(imgs)
         h_fg = self._cams(self.fg, x)
-        if self.spec.uses_bg_net:
-            x_bg = torch.sum(self._cams(self.bg, x), dim=-1)
-            bg_ch = 0.15 * torch.sigmoid(torch.amax(x_bg) - x_bg)
+        if not self.spec.uses_bg_net:
+            return h_fg, None
+        return h_fg, torch.sum(self._cams(self.bg, x), dim=-1)
+
+    def _merge(self, h_fg, x_bg, bg_max) -> torch.Tensor:
+        if x_bg is not None:
+            bg_ch = 0.15 * torch.sigmoid(bg_max - x_bg)
             return torch.cat([bg_ch[..., None], h_fg], dim=-1)
         if self.drop_last_class:
             return h_fg[..., :-1]
         return h_fg
 
     @torch.no_grad()
-    def segment_batch(self, imgs_raw) -> torch.Tensor:
+    def probs(self, imgs: torch.Tensor) -> torch.Tensor:
+        """CAM stage: f32 RGB images [B,S,S,3] 0..255 on the device ->
+        CRF unaries [B,S,S,C]."""
+        h_fg, x_bg = self._fg_bg(imgs)
+        return self._merge(h_fg, x_bg,
+                           None if x_bg is None else torch.amax(x_bg))
+
+    def _labels(self, probs, imgs) -> torch.Tensor:
+        return torch.argmax(mean_field(probs, imgs, self.cfg),
+                            dim=-1).to(torch.int32)
+
+    def per_shard(self, mesh) -> bool:
+        """Whether ``segment_batch(mesh=)`` runs the whole step per shard
+        (bg max shard-local): the reference's fused-step rule."""
+        n_ch = (self.spec.n_fg_classes + 1 if self.spec.uses_bg_net
+                else self.spec.n_fg_classes - int(self.drop_last_class))
+        size = self.fg.input_size
+        extra = int(np.prod([mesh.shape[a] for a in mesh.axis_names
+                             if a != 'data']))
+        return extra == 1 and _mxu_ok((size, size), n_ch, self.cfg)
+
+    @torch.no_grad()
+    def segment_batch(self, imgs_raw, mesh=None) -> torch.Tensor:
         """imgs_raw: [B,S,S,3] RGB 0..255, uint8 or float, numpy or a
-        tensor -> labels [B,S,S] int32 on the device."""
+        tensor (or placed on ``mesh`` by ``shard_batch``) -> labels
+        [B,S,S] int32 on the device (the first shard's, with a mesh)."""
+        if mesh is not None:
+            return self._segment_mesh(imgs_raw, mesh)
         imgs = torch.as_tensor(imgs_raw).to(self.device, torch.float32)
-        probs = self.probs(imgs)
-        q = mean_field(probs, imgs, self.cfg)
-        return torch.argmax(q, dim=-1).to(torch.int32)
+        return self._labels(self.probs(imgs), imgs)
+
+    def _segment_mesh(self, imgs_raw, mesh) -> torch.Tensor:
+        (imgs,), b0 = shard_batch(mesh, imgs_raw)
+        if self.per_shard(mesh):
+            return map_shards(mesh, lambda d, x: self._on(d).segment_batch(x),
+                              imgs, b0=b0)
+        devs = mesh.data_devices()
+        xs = [p.to(torch.float32) for p in imgs.pieces]
+        parts = [self._on(d)._fg_bg(x) for d, x in zip(devs, xs)]
+        bg_max = None
+        if self.spec.uses_bg_net:      # the batch-global max
+            bg_max = torch.amax(torch.stack(
+                [torch.amax(x_bg).to(devs[0]) for _, x_bg in parts]))
+
+        def finish(d, x, part):
+            bg = None if bg_max is None else bg_max.to(d)
+            return self._labels(self._merge(*part, bg), x)
+        return map_shards(mesh, finish, xs, parts, b0=b0)
 
 
 class ADPHSNSegmenter:
@@ -98,6 +155,7 @@ class ADPHSNSegmenter:
             raise ValueError(f'handle on {handle.device}, segmenter on '
                              f'{self.device}')
         self.handle = handle
+        self.model_family = model_family
         maps = registry.adp_index_maps(model_family)
         self.morph_spec = registry.get('ADP-morph')
         self.func_spec = registry.get('ADP-func')
@@ -150,11 +208,24 @@ class ADPHSNSegmenter:
             other_ind=1, adipose_cam=adipose_cam)
         return gc_ops.cs_gradcam(morph), gc_ops.cs_gradcam(func, other_ind=1)
 
+    def _on(self, device) -> 'ADPHSNSegmenter':
+        return on_device(self, device, lambda d: ADPHSNSegmenter(
+            self.handle.to(d), self.model_family, cfg_morph=self.cfg_morph,
+            cfg_func=self.cfg_func, device=d))
+
     @torch.no_grad()
-    def segment_batch(self, imgs_raw) -> Tuple[torch.Tensor, torch.Tensor]:
+    def segment_batch(self, imgs_raw, mesh=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """imgs_raw: [B,S,S,3] RGB 0..255, uint8 or float, numpy or a
-        tensor -> (morph, func) labels, each [B,S,S] int32 on the
-        device."""
+        tensor (or placed on ``mesh``) -> (morph, func) labels, each
+        [B,S,S] int32 on the device (the first shard's, with a mesh).
+        Nothing of the ADP step reduces over the batch, so with a mesh
+        every shard runs the whole step on its images, whichever program
+        the reference would run."""
+        if mesh is not None:
+            (imgs,), b0 = shard_batch(mesh, imgs_raw)
+            return map_shards(mesh, lambda d, x: self._on(d).segment_batch(x),
+                              imgs, b0=b0)
         imgs = torch.as_tensor(imgs_raw).to(self.device, torch.float32)
         cs_m, cs_f = self.probs(imgs)
         q_m = mean_field(cs_m, imgs, self.cfg_morph)

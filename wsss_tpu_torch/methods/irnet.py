@@ -15,8 +15,9 @@ Pipeline (03b_irn/func_sample.py:232-274):
 Every stage runs on one device (``device='cuda'`` by default, raising
 without a card; ``'cpu'`` on request); the per-image dicts and label maps
 that cross between stages are host numpy, the reference's on-disk
-contract.  ``mesh=`` takes only None until the multi-device path is
-ported (item 8).
+contract.  ``mesh=`` (``parallel.mesh``) cuts make_cam's batch over the
+mesh's 'data' axis and make_sem_seg's transition matrix over its first
+two axes; cam_to_ir_label takes no mesh, as in the reference.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from wsss_tpu_torch.data import registry
-from wsss_tpu_torch.methods.gradcam_cues import (_ClassifierHandle, _no_mesh,
+from wsss_tpu_torch.methods.gradcam_cues import (_ClassifierHandle,
                                                  _normalizer, _to)
 from wsss_tpu_torch.ops import cues as cue_ops
 from wsss_tpu_torch.ops.crf import config as crf_config
@@ -35,7 +36,9 @@ from wsss_tpu_torch.ops.filters import resize_bilinear
 from wsss_tpu_torch.models.backbones import init_random
 from wsss_tpu_torch.models.irn import IRNet
 from wsss_tpu_torch.ops.random_walk import (PathIndex, propagate_to_edge,
+                                            propagate_to_edge_sharded,
                                             to_affinity_sliced)
+from wsss_tpu_torch.parallel.mesh import map_shards, on_device, shard_batch
 from wsss_tpu_torch.train.schedules import ScheduledSGD, poly_decay
 from wsss_tpu_torch.utils.device import resolve_device
 
@@ -153,16 +156,28 @@ class CAMInference:
                 bg_ind=0, other_ind=1, adipose_cam=adipose_cam)
         return vol[0].permute(2, 0, 1)
 
+    def _on(self, device) -> 'CAMInference':
+        return on_device(self, device, lambda d: CAMInference(
+            self.handle.to(d), self.spec, self.model_type, self.scales,
+            self.adp_htt, device=d))
+
     def make_cam_batch(self, imgs_raw, tags: Optional[np.ndarray],
                        mesh=None) -> list:
         """Batch of same-shape images -> list of {'keys','cam','high_res'}
         dicts of host numpy (make_cam.py:78-88 per image).
 
         imgs_raw: [B,H,W,3] RGB 0..255 (numpy or a tensor).  tags:
-        [B,C_fg] or None."""
-        _no_mesh(mesh)
+        [B,C_fg] or None.  mesh: the MSF forwards run on the batch's
+        shards over the mesh's 'data' axis; the per-image finish on this
+        device."""
         imgs = _to(imgs_raw, self.device)
-        cam, hi, scores = self._msf_batch(imgs)
+        if mesh is not None:
+            (sh,), b0 = shard_batch(mesh, imgs_raw)
+            cam, hi, scores = map_shards(
+                mesh, lambda d, x: self._on(d)._msf_batch(_to(x, d)), sh,
+                b0=b0, device=self.device)
+        else:
+            cam, hi, scores = self._msf_batch(imgs)
         return [self._finalize(imgs[i], cam[i], hi[i], scores[i],
                                None if tags is None else np.asarray(tags[i]))
                 for i in range(imgs.shape[0])]
@@ -484,8 +499,9 @@ def make_sem_seg(edge: torch.Tensor, cam_dict: Dict[str, np.ndarray],
 
     walk_downsample: the reference's extra DeepGlobe /6 before the walk
     (make_sem_seg_labels.py:101-104), there because one card cannot hold
-    the [N,N] transition matrix at full resolution."""
-    _no_mesh(mesh)
+    the [N,N] transition matrix at full resolution; pass ``mesh`` to cut
+    the matrix 2-D over its first two axes instead
+    (``propagate_to_edge_sharded``)."""
     keys = cam_dict['keys']
     if keys.size == 0:
         if dataset.startswith('DeepGlobe'):
@@ -502,8 +518,12 @@ def make_sem_seg(edge: torch.Tensor, cam_dict: Dict[str, np.ndarray],
                               (h6, w6))[0].permute(2, 0, 1)
     if tuple(edge.shape) != tuple(cam.shape[1:]):
         edge = resize_bilinear(edge[None, ..., None], cam.shape[1:])[0, ..., 0]
-    rw = propagate_to_edge(cam, edge, beta=beta, exp_times=exp_times,
-                           radius=5)
+    if mesh is not None:
+        rw = propagate_to_edge_sharded(cam, edge, mesh, beta=beta,
+                                       exp_times=exp_times, radius=5)
+    else:
+        rw = propagate_to_edge(cam, edge, beta=beta, exp_times=exp_times,
+                               radius=5)
     rw_hwc = rw.permute(1, 2, 0)[None]
     if dataset == 'VOC2012':
         keys_pad = np.pad(keys + 1, (1, 0), mode='constant')

@@ -530,7 +530,8 @@ def _mxu_ok(hw: Tuple[int, int], n_ch: int, config) -> bool:
 def _mean_field_mxu(probs: torch.Tensor, imgs: torch.Tensor, *, g_sxy,
                     g_compat, bi_sxy, bi_srgb, bi_compat, iterations,
                     exclude_self=True, ref_round=False,
-                    state_bf16=False) -> torch.Tensor:
+                    state_bf16=False,
+                    cell_mult=MXU_CELL_MULT) -> torch.Tensor:
     """Batched mean field over the bilateral grid.
 
     The reference splits a batch into chunks to bound the TPU's working
@@ -545,7 +546,8 @@ def _mean_field_mxu(probs: torch.Tensor, imgs: torch.Tensor, *, g_sxy,
 
     ref_round=True rounds to bf16 where the reference does (filter input
     and output, grid kernels, Gaussian-message operands) — a CPU-test
-    switch only.
+    switch only.  cell_mult: the colour cell in units of srgb (the
+    row-banded ``mxu_sharded`` path and its tests use 1).
 
     state_bf16 (``mean_field`` passes ``_CRF_STATE_BF16`` on a CUDA
     device only; elsewhere the state stays float32, as in the reference's
@@ -573,10 +575,9 @@ def _mean_field_mxu(probs: torch.Tensor, imgs: torch.Tensor, *, g_sxy,
         img_g, sxy_g, (hd, wd) = imgs, bi_sxy, (h, w)
 
     grid = _mxu.MXUBilateralGrid(img_g, sxy_g, bi_srgb, c,
-                                 cell_mult=MXU_CELL_MULT,
-                                 ref_round=ref_round)
+                                 cell_mult=cell_mult, ref_round=ref_round)
     grid1 = _mxu.MXUBilateralGrid(img_g, sxy_g, bi_srgb, 1,
-                                  cell_mult=MXU_CELL_MULT, share_from=grid,
+                                  cell_mult=cell_mult, share_from=grid,
                                   ref_round=ref_round)
     ones_g = torch.ones(img_g.shape[:3] + (1,), dtype=torch.float32,
                         device=probs.device)

@@ -15,11 +15,12 @@ vgg16_irn.py:239-300, make_sem_seg_labels.py:70):
     The [N, N] products are float32 matmuls (cuBLAS on the card, TF32 off
     by ``resolve_device``), squared in a ping-pong between two buffers so
     that the walk holds 2 N^2 floats at its peak.
-
-``propagate_to_edge_sharded`` is not ported yet (ROADMAP queue 1 item 8).
+  * :func:`propagate_to_edge_sharded` — the same walk with the [N, N]
+    matrix cut into blocks over a mesh's first two axes.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -205,3 +206,50 @@ def propagate_to_edge(cam: torch.Tensor, edge: torch.Tensor,
         t, spare = spare, t
     out = torch.matmul(cam.reshape(k, n).to(torch.float32), t)
     return out.reshape(k, h, w)
+
+
+def _cat(parts: list, dim: int) -> torch.Tensor:
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
+def propagate_to_edge_sharded(cam: torch.Tensor, edge: torch.Tensor, mesh,
+                              beta: float = 10.0, exp_times: int = 8,
+                              radius: int = 5) -> torch.Tensor:
+    """:func:`propagate_to_edge` with the [N,N] transition matrix cut 2-D
+    over the mesh's first two axes, rows x columns (the reference lets
+    GSPMD shard it, so the full-resolution DeepGlobe walk fits by adding
+    cards instead of downsampling x6, make_sem_seg_labels.py:101-104).
+
+    Each squaring computes block (i, j) on device (i, j) as the product
+    of row panel i and column panel j, gathered there: a float32
+    ``torch.matmul`` (cuBLAS on the card), as the reference's is XLA's
+    dot.  Then the CAM's column blocks, the partial products summed over
+    i, come back to cam's device.  As in the reference, ``radius`` is
+    used as given: only the unsharded walk clamps it on tiny grids."""
+    k, h, w = cam.shape
+    n = h * w
+    ax_r, ax_c = mesh.axis_names[:2]
+    d = np.moveaxis(mesh.devices, [mesh.axis_names.index(ax_r),
+                                   mesh.axis_names.index(ax_c)], [0, 1])
+    devs = d.reshape(d.shape[0], d.shape[1], -1)[:, :, 0]
+    nr, nc = devs.shape
+    rb = [n * i // nr for i in range(nr + 1)]
+    cb = [n * j // nc for j in range(nc + 1)]
+    t = _transition_matrix(edge.to(torch.float32), (h, w), beta, radius)
+    blocks = [[t[rb[i]:rb[i + 1], cb[j]:cb[j + 1]].to(devs[i, j],
+                                                     copy=True)
+               for j in range(nc)] for i in range(nr)]
+    del t
+    for _ in range(exp_times):
+        blocks = [[torch.matmul(
+            _cat([blocks[i][jj].to(devs[i, j]) for jj in range(nc)], 1),
+            _cat([blocks[ii][j].to(devs[i, j]) for ii in range(nr)], 0))
+            for j in range(nc)] for i in range(nr)]
+    cam_flat = cam.reshape(k, n).to(torch.float32)
+    cols = []
+    for j in range(nc):
+        parts = [torch.matmul(cam_flat[:, rb[i]:rb[i + 1]].to(devs[i, j]),
+                              blocks[i][j]).to(cam.device)
+                 for i in range(nr)]
+        cols.append(functools.reduce(torch.add, parts))
+    return torch.cat(cols, 1).reshape(k, h, w)
