@@ -186,8 +186,24 @@ Phases, in order; any failure exits non-zero and prints no result:
                against propagate_to_edge within MESH_WALK_TOL, ms and
                TFLOP/s, make_sem_seg labels equal); mesh_cli (cli.gen_cues,
                cli.hsn, cli.irn make_cam -> make_sem_seg with --mesh auto
-               write the files of --mesh none; cli.train_classifier
-               --mesh auto is refused before writing);
+               write the files of --mesh none; cli.train_classifier,
+               cli.sec_dsrg --task train and cli.irn --passes train_irn
+               with --mesh auto train checkpoints within MESH_CKPT_TOL of
+               --mesh none's);
+     mesh_train — data-parallel training on the same two-shard mesh
+               (the shards' forwards in two host threads on the card):
+               mesh_train_cls (ClassifierTrainer, VGG16 with BN, VOC 20
+               classes, 321^2, batch 8 as two shards of 4),
+               mesh_train_sec and one DSRG step (DeepLab at 321^2, 21
+               classes, the CLI's synthetic cues), mesh_train_irn (IRNet
+               vgg16, crop 320, radius 10, irn_train_voc's batch): one
+               step against one device's from the same weights and
+               dropout masks, the loss within TRAIN_LOSS_RTOL and the
+               parameter change within MESH_TRAIN_REL of one device's
+               (relative, over all parameters; the classifier's held
+               step in float64), a half-batch step shown to exceed that
+               bound, then img/s and peak memory of MESH_TRAIN_STEPS
+               float32 steps beside one device's; no hand kernel;
  13. result  — one JSON line of kernels, then the last line
                {"ok": true, "device": {...}}.
 Every path is driven with the launch counts set to 0 just before it and
@@ -2189,8 +2205,8 @@ class StepClock:
         return out
 
 
-def train_loop(torch, step_fn, n_img):
-    """Losses and img/s of TRAIN_STEPS calls of step_fn(i) (the first a
+def train_loop(torch, step_fn, n_img, steps=TRAIN_STEPS):
+    """Losses and img/s of `steps` calls of step_fn(i) (the first a
     warm-up outside the clock), host clock ending in a synchronize; peak
     device memory over the calls."""
     torch.cuda.synchronize()
@@ -2198,9 +2214,9 @@ def train_loop(torch, step_fn, n_img):
     parts = [step_fn(0)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    parts += [step_fn(i) for i in range(1, TRAIN_STEPS)]
+    parts += [step_fn(i) for i in range(1, steps)]
     torch.cuda.synchronize()
-    ips = n_img * (TRAIN_STEPS - 1) / (time.perf_counter() - t0)
+    ips = n_img * (steps - 1) / (time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     return [{k: float(v) for k, v in p.items()} for p in parts], ips, peak
 
@@ -3534,15 +3550,55 @@ def read_tree(root):
     return out
 
 
+# --mesh auto against --mesh none, checkpoints, both trained with torch's
+# deterministic algorithms: without them two --mesh none runs differ by
+# more than the mesh could (on an H100 80GB HBM3 at 700 W,
+# cli.train_classifier's momentum buffers by 3% of their size, the
+# classifier's random-weight gradient amplifying the order of cuDNN's
+# atomic sums; with cuDNN's deterministic algorithms alone, cli.irn's
+# disp_mean by 1.1e-6, from the atomics of the heads' upsampling
+# backward; PERF.md)
+MESH_CKPT_TOL = 1e-6
+
+
+def ckpt_tensors(root):
+    """{path in the state: tensor} of the latest checkpoint under root."""
+    from wsss_tpu_torch.io import checkpoint
+    state, _ = checkpoint.restore_checkpoint(root, map_location='cpu')
+    out = {}
+
+    def walk(prefix, v):
+        if isinstance(v, dict):
+            for k, x in v.items():
+                walk(f'{prefix}/{k}', x)
+        elif hasattr(v, 'is_floating_point'):
+            out[prefix] = v
+    walk('', state)
+    return out
+
+
+def ckpt_diff(a, b):
+    """(max |a - b| over two checkpoints' tensors, the tensor where it
+    falls); inf if their keys differ."""
+    if a.keys() != b.keys() or not a:
+        return float('inf'), None
+    return max((float((a[k].double() - b[k].double()).abs().max()), k)
+               for k in a)
+
+
 def mesh_cli(torch, smi):
     """cli.gen_cues, cli.hsn and cli.irn (make_cam, cam_to_ir_label,
     make_sem_seg) with --mesh auto (a one-shard mesh on one card) against
-    --mesh none: the same files; cli.train_classifier --mesh auto raises
-    before writing.  Launches are those of the --mesh auto runs."""
+    --mesh none: the same files; then the training command lines
+    (cli.train_classifier, cli.sec_dsrg --task train, cli.irn --passes
+    train_irn) with --mesh auto against --mesh none, each pair trained
+    with torch's deterministic algorithms: checkpoints within
+    MESH_CKPT_TOL.  Launches are those of the --mesh auto runs."""
     import os
     import shutil
     import tempfile
     from wsss_tpu_torch.cli import gen_cues, hsn as hsn_cli, irn as irn_cli
+    from wsss_tpu_torch.cli import sec_dsrg as sec_cli
     from wsss_tpu_torch.cli import train_classifier
     base = ['--dataset', 'VOC2012', '--model', 'VGG16', '--device',
             MESH_DEVICE, '--img_size', str(MESH_CLI_SIZE), '--batchsize',
@@ -3584,21 +3640,57 @@ def mesh_cli(torch, smi):
                       f'{ {k: v for k, v in launches.items() if v} } ({smi})')
                 check(same and files['auto'],
                       f'mesh_cli: cli.{name} --mesh auto wrote other files')
-            os.makedirs('train')
-            os.chdir('train')
+            # training: irn_auto holds the --mesh auto run's ir-labels, the
+            # same files as irn_none's
+            train = {
+                'train_classifier': (
+                    train_classifier.main, ['--epochs', '1'],
+                    lambda m: ['--model_root', f'models_{m}', '--eval_root',
+                               f'eval_{m}'],
+                    lambda m: os.path.join(f'models_{m}', 'VOC2012_VGG16',
+                                           'ckpt')),
+                'sec_dsrg': (
+                    sec_cli.main, ['--task', 'train', '--method', 'SEC',
+                                   '--epochs', '1', '--val_every', '0'],
+                    lambda m: ['--wsss_model_root', f'wsss_{m}'],
+                    lambda m: os.path.join(f'wsss_{m}',
+                                           'SEC_VOC2012_VGG16')),
+                'irn': (
+                    irn_cli.main, ['--passes', 'train_irn'],
+                    lambda m: ['--work_root', f'irn_{m}'],
+                    lambda m: os.path.join(f'irn_{m}', ckpt))}
+            deterministic = (torch.backends.cudnn.deterministic,
+                             torch.are_deterministic_algorithms_enabled())
+            torch.backends.cudnn.deterministic = True
+            # warn_only: cuBLAS on the one stream the shards share is
+            # deterministic without CUBLAS_WORKSPACE_CONFIG
+            torch.use_deterministic_algorithms(True, warn_only=True)
             try:
-                train_classifier.main(base + ['--mesh', 'auto'])
-                refused = False
-            except NotImplementedError as e:
-                refused = 'item 8b' in str(e)
-            written = os.listdir('.')
+                for name, (main, extra, where, ckpt_of) in train.items():
+                    states, dts = {}, {}
+                    for mesh in ('none', 'auto'):
+                        _, _, dts[mesh], launches = run_cli(
+                            torch, main, base + extra + where(mesh)
+                            + ['--mesh', mesh])
+                        check_launches(launches, (), f'mesh_cli {name} '
+                                       f'--mesh {mesh} (no hand kernel)')
+                        states[mesh] = ckpt_tensors(ckpt_of(mesh))
+                    err, at = ckpt_diff(states['auto'], states['none'])
+                    print(f'[mesh_cli] cli.{name} training --mesh auto: '
+                          f'{dts["auto"]:.2f} s in-process (--mesh none '
+                          f'{dts["none"]:.2f} s), deterministic algorithms; '
+                          f'checkpoint ({len(states["auto"])} tensors) '
+                          f'against --mesh none\'s: max |d| {err:.3g} at '
+                          f'{at} (tolerance {MESH_CKPT_TOL}) ({smi})')
+                    check(err <= MESH_CKPT_TOL,
+                          f'mesh_cli: cli.{name} --mesh auto trained another '
+                          f'checkpoint (max |d| {err} at {at})')
+            finally:
+                torch.backends.cudnn.deterministic = deterministic[0]
+                torch.use_deterministic_algorithms(deterministic[1])
             os.chdir(cwd)                 # before the directory goes
     finally:
         os.chdir(cwd)
-    print(f'[mesh_cli] cli.train_classifier --mesh auto refused: {refused}, '
-          f'files written: {written}')
-    check(refused and not written,
-          'mesh_cli: train_classifier --mesh auto was not refused cleanly')
     check_launches(total, V2_KERNELS + SCATTER, 'mesh_cli')
     return total
 
@@ -3627,6 +3719,236 @@ def phase_mesh(torch, smi):
     paths['mesh_walk'] = mesh_walk(torch, smi)
     paths['mesh_cli'] = mesh_cli(torch, smi)
     return paths, cases
+
+
+# --- data-parallel training on a mesh of shards ------------------------------
+# Mesh([cuda:0, cuda:0]) again: the two shards' forwards run in two host
+# threads on the one card, so the img/s measure what the step over the
+# shards costs (its meetings, the second replica, the gradient sum), not
+# scaling.  Each trainer's step over the two shards is held against its
+# one-device step from the same weights and generator (the same dropout
+# masks): the loss within TRAIN_LOSS_RTOL, and the change the step made to
+# the parameters, d_mesh against d_one, by ||d_mesh - d_one|| / ||d_one||
+# over all parameters within MESH_TRAIN_REL (the same for the buffers,
+# BatchNorm's running statistics, where the step moves any).  A step on
+# the first half of the batch alone, what shards whose gradients were
+# never summed would give, must read above MESH_TRAIN_REL: the check sees
+# a missing reduction.  The classifier's held step runs in float64
+# (MESH_TRAIN_CLS_HELD): in float32 the VGG16 (BN) update at 321^2 is
+# not determined beyond its rounding (scripts/dp_step_diag.py reads the
+# float32 step against the float64 one), so two orders of the same sums
+# part it; its float32 loss is held on the timed steps' first.
+MESH_TRAIN_STEPS = 3         # timed steps after the held one
+MESH_TRAIN_REL = 1e-3
+MESH_TRAIN_CLS_HELD = 'float64'
+
+
+def state_clone(module):
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def phase_mesh_train(torch, smi):
+    """mesh_train_cls (ClassifierTrainer, VGG16 with BN, VOC's 20 classes,
+    321^2, batch 8 as two shards of 4), mesh_train_sec and one DSRG step
+    (DeepLab at 321^2, 21 classes, the CLI's synthetic cues),
+    mesh_train_irn (IRNet vgg16 at crop 320, radius 10, irn_train_voc's
+    batch): each one step over Mesh([cuda:0, cuda:0]) against one
+    device's, then MESH_TRAIN_STEPS timed steps each way."""
+    from wsss_tpu_torch.cli.sec_dsrg import _synthetic_cues
+    from wsss_tpu_torch.data import registry
+    from wsss_tpu_torch.data.pipeline import SyntheticWSSS
+    from wsss_tpu_torch.kernels import bilateral as K
+    from wsss_tpu_torch.methods import irnet
+    from wsss_tpu_torch.methods.gradcam_cues import _normalizer
+    from wsss_tpu_torch.models.backbones import build_classifier, init_random
+    from wsss_tpu_torch.parallel.mesh import Mesh
+    from wsss_tpu_torch.train.classifier import ClassifierTrainer
+    from wsss_tpu_torch.train.sec_dsrg import SECDSRGTrainer
+    dev = mesh_device(torch)
+    mesh = Mesh([dev, dev], ('data',))
+    spec = registry.get('VOC2012')
+    b = next(SyntheticWSSS('VOC2012', size=SIZE, n_images=BATCH)
+             .batches(BATCH, with_gt=True))
+    raw = torch.as_tensor(b.images, device=dev)
+    tags = torch.as_tensor(b.tags, device=dev)
+    gen = torch.Generator(dev)
+    paths, ips_of = {}, {}
+
+    def change(mod, before):
+        """{name: state after - before} of the tensors in ``before``."""
+        now = dict(mod.named_parameters())
+        now.update(mod.named_buffers())
+        return {k: now[k].detach().double() - v for k, v in before.items()}
+
+    def rel(got, want):
+        """(||got - want|| / ||want|| over all tensors, the worst tensor and
+        its own ratio); None where neither step moved anything."""
+        num = den = 0.0
+        worst = (0.0, '-')
+        for k, w in want.items():
+            e, dw = float((got[k] - w).norm()), float(w.norm())
+            num, den = num + e * e, den + dw * dw
+            if dw > 0:
+                worst = max(worst, (e / dw, k))
+        if den == 0:
+            return None if num == 0 else (float('inf'), worst[1], worst[0])
+        return (num / den) ** 0.5, worst[1], worst[0]
+
+    def held(name, what, make, step, module_of, loss_key, dtype):
+        """One step on fresh trainers from the same weights: one device,
+        over the shards, and one device on the first half of the batch.
+        Returns the first two's losses."""
+        runs = {}
+        for key, m, n in (('one', None, BATCH), ('mesh', mesh, BATCH),
+                          ('half', None, BATCH // 2)):
+            tr = make(dtype)
+            mod = module_of(tr)
+            before = {k: v.detach().double().clone()
+                      for k, v in mod.state_dict().items()
+                      if v.is_floating_point()}
+            first = {k: float(v) for k, v in step(tr, 0, m, n).items()}
+            runs[key] = (first, change(mod, before),
+                         {k for k, _ in mod.named_parameters()})
+            del tr, mod, before
+            torch.cuda.empty_cache()
+        first_one, d_one, names = runs['one']
+        first_mesh, d_mesh, _ = runs['mesh']
+        d_half = runs['half'][1]
+        params = {k: v for k, v in d_one.items() if k in names}
+        buffers = {k: v for k, v in d_one.items() if k not in names}
+        r_p = rel({k: d_mesh[k] for k in params}, params)
+        r_h = rel({k: d_half[k] for k in params}, params)
+        r_b = rel({k: d_mesh[k] for k in buffers}, buffers)
+        l1, l2 = first_one[loss_key], first_mesh[loss_key]
+        bufs = ('no buffer moved' if r_b is None else
+                f'buffers {r_b[0]:.3g} (worst {r_b[1]} {r_b[2]:.3g})')
+        print(f'[mesh_train] {name} {what} in {dtype}: one step over {mesh} '
+              f'against one device from the same weights and masks: '
+              f'{loss_key} {l2:.9g} vs {l1:.9g} (rtol {TRAIN_LOSS_RTOL}); '
+              f'||d_mesh - d_one|| / ||d_one||: parameters {r_p[0]:.3g} '
+              f'(worst {r_p[1]} {r_p[2]:.3g}), {bufs} (bound '
+              f'{MESH_TRAIN_REL}); a step on the first half of the batch '
+              f'reads {r_h[0]:.3g} ({smi})')
+        check(abs(l2 - l1) <= TRAIN_LOSS_RTOL * abs(l1),
+              f'{name}: the step over the shards has another loss')
+        check(r_p[0] <= MESH_TRAIN_REL,
+              f'{name}: the step over the shards updated other parameters')
+        check(r_b is None or r_b[0] <= MESH_TRAIN_REL,
+              f'{name}: the step over the shards moved other statistics')
+        check(r_h[0] > MESH_TRAIN_REL,
+              f'{name}: a half-batch step passes the bound, which then '
+              f'cannot see a missing gradient sum')
+        return {'one': first_one, 'mesh': first_mesh}
+
+    def run(name, what, make, step, module_of, loss_key, timed=True,
+            dtype=torch.float32):
+        """The held first step (on fresh trainers, in ``dtype``), then,
+        where timed, the timed float32 ones, whose first losses (from the
+        same weights and masks) agree within TRAIN_LOSS_RTOL.  Returns
+        (launches, the held step's losses one way and the other)."""
+        K.reset_launch_counts()
+        firsts = held(name, what, make, step, module_of, loss_key, dtype)
+        launches = dict(K.LAUNCHES)
+        check_launches(launches, (), f'{name} (no hand kernel)')
+        if not timed:
+            return launches, firsts
+        timing = {}
+        for key, m in (('one', None), ('mesh', mesh)):
+            tr = make(torch.float32)
+            if key == 'mesh':
+                K.reset_launch_counts()
+            parts, ips, peak = train_loop(
+                torch, lambda i: step(tr, i, m, BATCH), BATCH,
+                1 + MESH_TRAIN_STEPS)
+            if key == 'mesh':
+                for k, v in K.LAUNCHES.items():
+                    launches[k] = launches.get(k, 0) + v
+            timing[key] = (ips, peak, parts[0][loss_key])
+            del tr
+            torch.cuda.empty_cache()
+        (ips1, peak1, l1), (ips2, peak2, l2) = timing['one'], timing['mesh']
+        print(f'[mesh_train] {name} {what}, batch {BATCH}, '
+              f'{MESH_TRAIN_STEPS} steps after a warm-up: {ips2:.2f} img/s '
+              f'over 2 shards on one card, one device {ips1:.2f} img/s '
+              f'({ips2 / ips1:.3f}x); peak memory {peak2:.2f} GiB, one '
+              f'device {peak1:.2f} GiB; first float32 {loss_key} {l2:.9g} vs '
+              f'{l1:.9g}; launches '
+              f'{ {k: v for k, v in launches.items() if v} } ({smi})')
+        check(abs(l2 - l1) <= TRAIN_LOSS_RTOL * abs(l1),
+              f'{name}: the float32 step over the shards has another loss')
+        check_launches(launches, (), f'{name} (no hand kernel)')
+        ips_of[name] = ips2
+        return launches, firsts
+
+    # --- VGG16 (BN) classifier, dropout on, lr 0.01 ----------------------
+    x = _normalizer(spec.norm_cues, dev)(raw)
+
+    def make_cls(dtype):
+        net = build_classifier('VGG16', spec.n_fg_classes, dtype=dtype)
+        tr = ClassifierTrainer(net.to(dtype), lr=0.01, schedule='const',
+                               device=dev)
+        tr.init(torch.Generator().manual_seed(0))
+        return tr
+    paths['mesh_train_cls'], _ = run(
+        'mesh_train_cls', f'VGG16 (BN) at {SIZE}^2', make_cls,
+        lambda tr, i, m, n: tr.train_step(x[:n], tags[:n],
+                                          gen.manual_seed(i), mesh=m),
+        lambda tr: tr.model, 'loss', dtype=getattr(torch, MESH_TRAIN_CLS_HELD))
+
+    # --- SEC, then one DSRG step: DeepLab at 321^2, 21 classes ----------
+    xs = _normalizer(spec.norm_sec, dev)(raw)
+    n_seg = spec.n_seg_classes
+    grid = (SIZE - 1) // 8 + 1
+    cues = []
+    for i in range(MESH_TRAIN_STEPS + 1):
+        c, lab = _synthetic_cues(b.gt, n_seg, grid, i)
+        cues.append((torch.as_tensor(c, device=dev),
+                     torch.as_tensor(lab, device=dev)))
+
+    def make_deeplab(method):
+        def make(dtype):
+            tr = SECDSRGTrainer(method, n_seg, device=dev)
+            tr.init(torch.Generator().manual_seed(0))
+            return tr
+        return make
+
+    def deeplab_step(tr, i, m, n):
+        return tr.train_step(xs[:n], raw[:n], *(c[:n] for c in cues[i]),
+                             gen.manual_seed(i), mesh=m)
+    paths['mesh_train_sec'], _ = run(
+        'mesh_train_sec', f'SEC DeepLab at {SIZE}^2', make_deeplab('SEC'),
+        deeplab_step, lambda tr: tr.net, 'total')
+    paths['mesh_train_dsrg'], firsts = run(
+        'mesh_train_dsrg', f'DSRG DeepLab at {SIZE}^2', make_deeplab('DSRG'),
+        deeplab_step, lambda tr: tr.net, 'total', timed=False)
+    grown = [firsts[k]['grown_px'] for k in ('mesh', 'one')]
+    print(f'[mesh_train] mesh_train_dsrg grown_px {grown[0]:.0f} over the '
+          f'shards, {grown[1]:.0f} on one device ({smi})')
+    check(grown[0] == grown[1],
+          'mesh_train_dsrg: the region growing grew other cues')
+
+    # --- IRNet vgg16 at crop 320 on irn_train_voc's batch -----------------
+    crop = SIZE // 16 * 16
+
+    def make_irn(dtype):
+        tr = irnet.IRNTrainer('vgg16', crop_size=crop, device=dev)
+        tr.init(torch.Generator().manual_seed(1))
+        init_random(tr.net.trunk, torch.Generator().manual_seed(5))
+        return tr
+    probe = make_irn(torch.float32)
+    imgs, labels, _ = irn_train_batch(21, IRN_TRAIN_BATCH, crop, n_seg,
+                                      probe.path_index)
+    radius = probe.path_index.radius
+    del probe
+    xn = _normalizer(spec.norm_irn, dev)(
+        torch.from_numpy(imgs).to(dev, torch.float32))
+    dev_labels = [torch.from_numpy(a).to(dev) for a in labels]
+    paths['mesh_train_irn'], _ = run(
+        'mesh_train_irn', f'IRNet vgg16 at crop {crop}, radius {radius}',
+        make_irn, lambda tr, i, m, n: tr.train_step(
+            xn[:n], *(a[:n] for a in dev_labels), mesh=m),
+        lambda tr: tr.net, 'total')
+    return paths, ips_of
 
 
 def main():
@@ -3670,6 +3992,10 @@ def main():
     for name, cases in mesh_cases.items():
         results[name]['cases'].update(cases)
     print(f'[time] mesh done at {time.perf_counter() - t_start:.0f} s')
+    torch.cuda.empty_cache()
+    mesh_train_paths, _ = phase_mesh_train(torch, smi)
+    paths.update(mesh_train_paths)
+    print(f'[time] mesh_train done at {time.perf_counter() - t_start:.0f} s')
     print(f'[time] all paths done at {time.perf_counter() - t_start:.0f} s')
     from wsss_tpu_torch.kernels import build
     sources = build.sources()

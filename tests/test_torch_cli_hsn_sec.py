@@ -329,5 +329,11 @@ def test_cli_entry_points_default_to_cuda_including_training(tmp_path,
     single = csv.read_text()
     hsn_cli.main(argv + ['--mesh', 'auto', '--device', 'cpu'])
     assert csv.read_text() == single
-    with pytest.raises(NotImplementedError, match='item 8b'):
-        train_cli.main(argv + train + ['--device', 'cpu', '--mesh', 'auto'])
+    # and the training tasks: --mesh auto trains the same step on it
+    ckpt = tmp_path / 'DeepGlobe_M7' / 'ckpt'
+    single, _ = checkpoint.restore_checkpoint(str(ckpt))
+    train_cli.main(argv + train + ['--device', 'cpu', '--mesh', 'auto'])
+    meshed, _ = checkpoint.restore_checkpoint(str(ckpt))
+    for k, v in single['params'].items():
+        np.testing.assert_allclose(meshed['params'][k].numpy(), v.numpy(),
+                                   rtol=0, atol=1e-6, err_msg=k)

@@ -213,9 +213,9 @@ def train_runs(runs, tmp_path_factory):
             return step(variables, opt_state, *batch)
         return call
 
-    def port_recording(self, *batch):
+    def port_recording(self, *batch, **kw):
         pin.append([torch.as_tensor(x).cpu().numpy() for x in batch])
-        return pstep(self, *batch)
+        return pstep(self, *batch, **kw)
     init = _train_init()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_irnet.IRNTrainer, 'jitted_step', jax_recording)

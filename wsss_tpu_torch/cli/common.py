@@ -4,10 +4,10 @@ and batches.
 
 Mirrors the reference's layered config (SURVEY.md §5.6): settings.ini for
 roots (settings.ini:1-7), argparse per stage, and the dataclass registry
-for everything per-dataset.  Two departures: ``--device`` (default
-'cuda') picks the card or, asked for, the CPU; the training command lines
-refuse a ``--mesh`` other than 'none' (``refuse_mesh``) until
-data-parallel training is ported (ROADMAP queue 1 item 8b).
+for everything per-dataset.  One departure: ``--device`` (default
+'cuda') picks the card or, asked for, the CPU.  ``--mesh`` reaches the
+training command lines through ``dp_train_putters``: the mesh their
+trainers' steps run over, or None.
 """
 from __future__ import annotations
 
@@ -60,8 +60,8 @@ def add_common_args(p: argparse.ArgumentParser):
                         "(at most the visible ones).  Replaces the "
                         "reference's per-GPU process spawn "
                         "(make_cam.py:120-122, SURVEY.md §2.8) with one "
-                        "process over a parallel.mesh.Mesh.  Training "
-                        "takes only 'none' so far.")
+                        "process over a parallel.mesh.Mesh; training "
+                        "runs data-parallel over its 'data' shards.")
     p.add_argument('--device', default='cuda',
                    help="torch device: 'cuda' (default; raises without a "
                         "card) or 'cpu'")
@@ -80,15 +80,21 @@ def get_mesh(args):
                      device=getattr(args, 'device', 'cuda'))
 
 
-def refuse_mesh(args, what: str) -> None:
-    """Training runs on one device until the reference's data-parallel
-    putters (``dp_train_putters``) are ported: refuse any other --mesh
-    before anything is written."""
-    v = getattr(args, 'mesh', 'none')
-    if v and v != 'none':
-        raise NotImplementedError(
-            f'{what} with --mesh {v}: data-parallel training is not ported '
-            'yet (ROADMAP queue 1 item 8b); pass --mesh none')
+def dp_train_putters(args):
+    """The mesh a training loop's steps run over (``--mesh``), or None for
+    'none': the counterpart of the reference's putters, which shard the
+    batch over 'data' and replicate the parameters and optimizer state
+    (here the trainers' ``train_step(..., mesh=)``, through
+    ``parallel.mesh.Replicas``).  Raises SystemExit before anything is
+    written when --batchsize does not divide over the 'data' axis."""
+    mesh = get_mesh(args)
+    if mesh is None:
+        return None
+    ndata = mesh.shape['data']
+    if args.batchsize % ndata:
+        raise SystemExit(f'--batchsize {args.batchsize} must be '
+                         f'divisible by the mesh data axis ({ndata})')
+    return mesh
 
 
 def input_size(args) -> int:

@@ -189,7 +189,9 @@ def affinity_example(img, lab, args, crop, path_index, n_classes, rng):
 def run_train_irn(args, dirs):
     """train_irn (train_irn.py:14-168): the heads on the classifier's
     transplanted trunk, then the displacement-mean calibration; writes
-    the checkpoint make_sem_seg restores.  Returns the trainer."""
+    the checkpoint make_sem_seg restores.  Returns the trainer.  With
+    --mesh each step runs over the mesh's 'data' shards (the checkpoint
+    from shard 0's replica); the calibration runs unsharded."""
     spec, htt = _spec_and_htt(args)
     size = common.input_size(args)
     dev = resolve_device(args.device)
@@ -203,7 +205,9 @@ def run_train_irn(args, dirs):
         raise SystemExit('--rescale_range requires --crop_method random '
                          '(the reference only combines them, '
                          'func_sample.py:147-148)')
-    tr = irnet.IRNTrainer(backbone, crop, lr=args.irn_lr, max_step=max_step, device=dev)
+    mesh = common.dp_train_putters(args)
+    tr = irnet.IRNTrainer(backbone, crop, lr=args.irn_lr, max_step=max_step,
+                          device=dev)
     tr.init(torch.Generator().manual_seed(0))
     if args.irn_random_trunk:
         init_random(tr.net.trunk, torch.Generator().manual_seed(0))
@@ -246,7 +250,7 @@ def run_train_irn(args, dirs):
                             .to(torch.float32))
                 bg, fg, ng = (to_dev(np.stack(z))
                               for z in zip(*[p[1] for p in pairs]))
-                parts = tr.train_step(imgs, bg, fg, ng)
+                parts = tr.train_step(imgs, bg, fg, ng, mesh=mesh)
                 if args.verbose:
                     print('  irn loss %.4f' % float(parts['total']))
         # displacement mean calibration over the whole infer split
@@ -454,7 +458,7 @@ def main(argv=None):
 
     passes = PASSES if args.passes == 'all' else args.passes.split(',')
     if args.tune or 'train_irn' in passes:
-        common.refuse_mesh(args, 'train_irn')
+        common.dp_train_putters(args)     # an indivisible batch exits here
     run_name = f'IRN_{args.dataset}_{args.model}'
     root = os.path.join(args.work_root, run_name)
     dirs = {k: os.path.join(root, k)

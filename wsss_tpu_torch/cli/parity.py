@@ -6,9 +6,9 @@ lines — 01 classifier training, 02 Grad-CAM cue generation + cue eval,
 03a SEC/DSRG, 03b IRNet, 03c HistoSegNet — over the published splits,
 collects every mIoU, and diffs against the published tables
 (``eval/baseline.py``) with a ±budget acceptance band.  ``--device``
-(default the card) is forwarded to every stage; ``--mesh`` takes only
-'none' until data-parallel training is ported (ROADMAP queue 1 item 8b),
-since the reference forwards it to the training stages too.
+(default the card) and ``--mesh`` ('none', 'auto' or N) are forwarded
+to every stage, the training stages included, as the reference forwards
+them.
 
 With no devkit under --data_root it runs end-to-end on synthetic data
 (smoke mode): every stage executes and the report is produced, but the
@@ -56,6 +56,8 @@ def _base_args(a, dataset: str, model: str) -> List[str]:
         out += ['--data_root', a.data_root]
     if a.img_size:
         out += ['--img_size', str(a.img_size)]
+    if a.mesh != 'none':
+        out += ['--mesh', a.mesh]
     return out
 
 
@@ -204,11 +206,9 @@ def main(argv=None):
                    help='reuse existing classifier checkpoints')
     p.add_argument('--skip_methods', default='',
                    help='comma list from sec,dsrg,irnet,histosegnet')
-    p.add_argument('--mesh', default='none', choices=['none'],
-                   help="device mesh: only 'none' (one device) until "
-                        "data-parallel training is ported, as the "
-                        "reference forwards --mesh to its training "
-                        "stages too")
+    p.add_argument('--mesh', default='none',
+                   help="forwarded to every stage: 'none', 'auto' or N "
+                        "devices of --device's type")
     p.add_argument('--device', default='cuda',
                    help="torch device forwarded to every stage: 'cuda' "
                         "(default; raises without a card) or 'cpu'")

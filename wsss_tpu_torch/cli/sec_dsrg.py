@@ -146,9 +146,11 @@ def _synthetic_cues(gt, n_cls, grid, step):
 
 
 def train(args, trainer: SECDSRGTrainer, spec, run_id: str, size: int,
-          ckpt_root: str) -> None:
+          ckpt_root: str, mesh=None) -> None:
     """The train task's loop (03a model.py train): per-epoch shuffle, the
-    ragged tail dropped, a checkpoint at each epoch's end."""
+    ragged tail dropped, a checkpoint at each epoch's end.  With ``mesh``
+    each step runs over its 'data' shards; the checkpoints come from
+    shard 0's replica, the val mIoU runs unsharded."""
     dev = trainer.device
     n_cls = trainer.num_classes
     norm = _normalizer(spec.norm_sec, dev)
@@ -191,7 +193,7 @@ def train(args, trainer: SECDSRGTrainer, spec, run_id: str, size: int,
                 imgs = torch.as_tensor(b.images).to(dev, torch.float32)
                 parts = trainer.train_step(
                     norm(imgs), imgs, cues, labels,
-                    torch.Generator(dev).manual_seed(step))
+                    torch.Generator(dev).manual_seed(step), mesh=mesh)
                 step += 1
                 logger.log(step, **{k: float(v) for k, v in parts.items()})
                 if args.verbose:
@@ -237,8 +239,7 @@ def main(argv=None):
     p.add_argument('--profile_dir', default=None,
                    help='profiler trace output dir')
     args = p.parse_args(argv)
-    if args.task == 'train':
-        common.refuse_mesh(args, 'sec_dsrg --task train')
+    mesh = common.dp_train_putters(args) if args.task == 'train' else None
 
     spec = registry.get(args.dataset)
     n_cls = spec.n_seg_classes
@@ -279,7 +280,7 @@ def main(argv=None):
             net.load_state_dict(state['params'])
         print(f'resumed {run_id} from step {st}')
     if args.task == 'train':
-        train(args, trainer, spec, run_id, size, ckpt_root)
+        train(args, trainer, spec, run_id, size, ckpt_root, mesh)
         return
 
     # --- predict: FCN forward -> upscale -> test-time CRF -> eval ------

@@ -14,7 +14,10 @@ devkit is given:
 Training checkpoints are ``torch.save`` files of the model's state dict
 and the optimizer's state under ``--model_root/<sess id>/ckpt``;
 ``--resume`` continues from the latest one and ``--task predict``
-calibrates from it without training.
+calibrates from it without training.  ``--mesh auto`` (or N) trains
+data-parallel over the mesh's 'data' shards, the batch's statistics,
+loss and dropout masks the global batch's; the checkpoints come from
+shard 0's replica, the calibration runs unsharded on shard 0's device.
 """
 from __future__ import annotations
 
@@ -63,7 +66,7 @@ def main(argv=None):
                    help='write a torch.profiler trace of the train steps '
                         'here')
     args = p.parse_args(argv)
-    common.refuse_mesh(args, 'train_classifier')
+    mesh = common.dp_train_putters(args)
 
     spec = registry.get(args.dataset)
     size = common.input_size(args)
@@ -135,7 +138,7 @@ def main(argv=None):
                     continue  # the reference drops the ragged tail
                 m = trainer.train_step(
                     norm(to_dev(b.images)), to_dev(expand_tags(b.tags)),
-                    torch.Generator(dev).manual_seed(step))
+                    torch.Generator(dev).manual_seed(step), mesh=mesh)
                 step += 1
                 if args.verbose:
                     print(f'epoch {epoch} step {step} '

@@ -38,7 +38,9 @@ from wsss_tpu_torch.models.irn import IRNet
 from wsss_tpu_torch.ops.random_walk import (PathIndex, propagate_to_edge,
                                             propagate_to_edge_sharded,
                                             to_affinity_sliced)
-from wsss_tpu_torch.parallel.mesh import map_shards, on_device, shard_batch
+from wsss_tpu_torch.parallel.mesh import (Mesh, cross_shard_sum, map_shards,
+                                          on_device, shard_batch,
+                                          step_over_shards)
 from wsss_tpu_torch.train.schedules import ScheduledSGD, poly_decay
 from wsss_tpu_torch.utils.device import resolve_device
 
@@ -423,7 +425,15 @@ class IRNTrainer:
                fg_pos: torch.Tensor, neg: torch.Tensor):
         """train_irn.py:112-125 on the device: (total, {pos_aff, neg_aff,
         dp_fg, dp_bg})."""
-        edge, disp = self.net(imgs_norm)
+        return self._ratios(self._loss_sums(self.net, imgs_norm, bg_pos,
+                                            fg_pos, neg))
+
+    def _loss_sums(self, net, imgs_norm, bg_pos, fg_pos, neg
+                   ) -> torch.Tensor:
+        """The batch-wide sums the losses are ratios of, stacked [8]: the
+        numerators of bg_pos, fg_pos, neg, dp_fg and dp_bg, then the
+        sums of bg_pos, fg_pos and neg."""
+        edge, disp = net(imgs_norm)
         # irnet.py:422 as written: M7's /2-grid edge *logits* are resized
         # onto the crop/4 affinity grid (an antialiased 2x downsample)
         # before the sigmoid; VGG16 / ResNet50 emit /4 directly
@@ -434,39 +444,58 @@ class IRNTrainer:
         pos_aff_loss = -torch.log(aff + 1e-5)
         neg_aff_loss = -torch.log(1.0 + 1e-5 - aff)
         pair_disp = self._pair_displacement(disp)       # [B,2,P,M]
-        dp_fg_loss = torch.abs(pair_disp - self.disp_target)
+        dp_fg_loss = torch.abs(pair_disp - self.disp_target.to(disp.device))
         dp_bg_loss = torch.abs(pair_disp)
 
-        bg_pos_l = torch.sum(bg_pos * pos_aff_loss) / (torch.sum(bg_pos)
-                                                       + 1e-5)
-        fg_pos_l = torch.sum(fg_pos * pos_aff_loss) / (torch.sum(fg_pos)
-                                                       + 1e-5)
+        return torch.stack([
+            torch.sum(bg_pos * pos_aff_loss), torch.sum(fg_pos * pos_aff_loss),
+            torch.sum(neg * neg_aff_loss),
+            torch.sum(dp_fg_loss * fg_pos[:, None]),
+            torch.sum(dp_bg_loss * bg_pos[:, None]),
+            torch.sum(bg_pos), torch.sum(fg_pos), torch.sum(neg)])
+
+    @staticmethod
+    def _ratios(sums: torch.Tensor):
+        """(total, parts) from ``_loss_sums``' [8] sums."""
+        bg_num, fg_num, neg_num, dp_fg_num, dp_bg_num, n_bg, n_fg, n_neg = \
+            sums.unbind()
+        bg_pos_l = bg_num / (n_bg + 1e-5)
+        fg_pos_l = fg_num / (n_fg + 1e-5)
         pos_l = bg_pos_l / 2 + fg_pos_l / 2
-        neg_l = torch.sum(neg * neg_aff_loss) / (torch.sum(neg) + 1e-5)
-        dp_fg_l = torch.sum(dp_fg_loss * fg_pos[:, None]) / (
-            2 * torch.sum(fg_pos) + 1e-5)
-        dp_bg_l = torch.sum(dp_bg_loss * bg_pos[:, None]) / (
-            2 * torch.sum(bg_pos) + 1e-5)
+        neg_l = neg_num / (n_neg + 1e-5)
+        dp_fg_l = dp_fg_num / (2 * n_fg + 1e-5)
+        dp_bg_l = dp_bg_num / (2 * n_bg + 1e-5)
         total = (pos_l + neg_l) / 2 + (dp_fg_l + dp_bg_l) / 2
         return total, {'pos_aff': pos_l, 'neg_aff': neg_l,
                        'dp_fg': dp_fg_l, 'dp_bg': dp_bg_l}
 
-    def train_step(self, imgs_norm, bg_pos, fg_pos, neg
-                   ) -> Dict[str, torch.Tensor]:
+    def train_step(self, imgs_norm, bg_pos, fg_pos, neg,
+                   mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
         """One step on a normalized NHWC batch and its [B,P,M] affinity
         labels: forward, losses, backward into the heads, optimizer.
         Returns the detached loss parts and 'total' as device tensors (no
-        host sync)."""
-        to = lambda x: torch.as_tensor(x).to(self.device, torch.float32)
+        host sync).
+
+        The step runs over ``mesh``'s 'data' shards (None: one shard on
+        the trainer's device), ``parallel.mesh.step_over_shards``: the
+        eight sums the losses are ratios of are cross-shard sums, and the
+        ratios are formed on shard 0's device, as of the whole batch
+        (averaging each shard's ratios would be another loss).  The heads'
+        GroupNorm is per sample and the trunk frozen, so nothing else
+        meets."""
         self.net.train()
-        loss, parts = self.losses(to(imgs_norm), to(bg_pos), to(fg_pos),
-                                  to(neg))
-        self.net.zero_grad()
-        loss.backward()
-        self.tx.step()
-        parts = {k: v.detach() for k, v in parts.items()}
-        parts['total'] = loss.detach()
-        return parts
+
+        def forward(net, dev, *xs):
+            return self._loss_sums(net, *(x.to(torch.float32) for x in xs))
+
+        def combine(outs, devices, batch):
+            loss, parts = self._ratios(cross_shard_sum(outs, devices)[0])
+            parts = {k: v.detach() for k, v in parts.items()}
+            parts['total'] = loss.detach()
+            return loss, parts
+
+        return step_over_shards(self, self.net, self.tx, mesh, forward,
+                                combine, imgs_norm, bg_pos, fg_pos, neg)
 
     @torch.no_grad()
     def calibrate_disp_mean(self, img_batches) -> np.ndarray:

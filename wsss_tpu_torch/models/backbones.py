@@ -39,6 +39,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from wsss_tpu_torch.parallel.mesh import cross_shard_sum, current_shard
+
 VGG16_CFG: Tuple[Tuple[Any, ...], ...] = (
     (64, 64, 'M'), (128, 128, 'M'), (256, 256, 256, 'M'),
     (512, 512, 512, 512, 512, 512), (1024, 'D', 1024, 'D'))
@@ -100,19 +102,56 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         if not self.training:
             return x
+        step = current_shard()
+        if step is not None:
+            return _shard_dropout(step, x, self.rate)
         return dropout(x, self.rate, generator)
+
+
+def _shard_dropout(step, x: torch.Tensor, rate: float) -> torch.Tensor:
+    """``dropout`` of one shard inside a data-parallel step: its rows of
+    the keep mask that ``dropout`` draws once for the global batch's
+    shape, from the step's generator on shard 0's device, as the
+    unsharded call draws it."""
+    def combine(shapes):
+        rows = [s[0] for s in shapes]
+        ones = torch.ones((sum(rows),) + tuple(shapes[0][1:]),
+                          dtype=x.dtype, device=step.devices[0])
+        keep = dropout(ones, rate, step.generator) != 0
+        return [k.to(d) for k, d in zip(torch.split(keep, rows),
+                                        step.devices)]
+    keep = step.meet(tuple(x.shape), combine)
+    return torch.where(keep, x / (1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     """``bn`` on NCHW ``x``; in train mode flax's BatchNorm(momentum 0.99):
     batch mean and biased variance (E[x^2] - E[x]^2, flax's fast variance,
     floored at 0) in at least float32, the running statistics moved towards
-    them, the result in x's dtype."""
+    them, the result in x's dtype.  Inside a data-parallel step
+    (``parallel.mesh.run_shards``) the batch is the global one: every
+    replica normalizes with, and moves its running statistics by, the
+    same global values."""
     if not bn.training:
         return bn(x)
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    mean = xf.mean((0, 2, 3))
-    var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+    step = current_shard()
+    if step is None:
+        mean = xf.mean((0, 2, 3))
+        ex2 = (xf * xf).mean((0, 2, 3))
+    else:
+        # inside a data-parallel step: the global batch's statistics, from
+        # the cross-shard sums of every shard's sums and counts
+        def combine(parts):
+            sums = cross_shard_sum([p[0] for p in parts], step.devices)
+            n = sum(p[1] for p in parts)
+            return [(s, n) for s in sums]
+        part = torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))])
+        total, n = step.meet((part, x.shape[0] * x.shape[2] * x.shape[3]),
+                             combine)
+        mean, ex2 = total[0] / n, total[1] / n
+    var = torch.clamp(ex2 - mean * mean, min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(0.99).add_(0.01 * mean)
         bn.running_var.mul_(0.99).add_(0.01 * var)

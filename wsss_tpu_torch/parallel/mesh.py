@@ -7,7 +7,9 @@ GSPMD for the rest.  The port's counterpart is a mesh in one process: an
 array of ``torch.device``s shaped by named axes.  A batch is cut over the
 'data' axis into pieces, one on each shard's device (``shard_batch``);
 ``map_shards`` runs a function on every shard's piece, each on its
-device, and gathers the outputs in shard order.  Copies between devices
+device, and gathers the outputs in shard order.  Every training step
+runs over the shards (``step_over_shards``, the section on data-parallel
+training below; one shard where no mesh is given).  Copies between devices
 are ``.to(device, non_blocking=True)``: peer copies over NVLink on a
 machine with several cards.
 
@@ -19,7 +21,9 @@ one-shard mesh.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import copy
 import dataclasses
 import queue
 import threading
@@ -113,8 +117,8 @@ def batch_sharding(mesh: Mesh) -> Placement:
 
 
 def replicated(mesh: Mesh) -> Placement:
-    """A whole copy on every shard.  Nothing reads it yet: the reference's
-    training putters do (ROADMAP queue 1 item 8b)."""
+    """A whole copy on every shard: how ``Replicas`` holds a trainer's
+    parameters and buffers in a data-parallel step."""
     return Placement(mesh, ())
 
 
@@ -130,9 +134,10 @@ class ShardedBatch:
     """A batch cut along dim 0 over a mesh's 'data' axis: ``pieces[i]``
     lies on ``mesh.data_devices()[i]``."""
 
-    def __init__(self, pieces, placement: Placement):
+    def __init__(self, pieces, placement: Placement, pad: int = 0):
         self.pieces = tuple(pieces)
         self.placement = placement
+        self.pad = pad          # rows repeated at the end to fill the shards
 
     @property
     def shape(self) -> tuple:
@@ -192,7 +197,7 @@ def _shard(mesh: Mesh, arrays, streams=None):
             out.append(a)
             continue
         out.append(ShardedBatch(_cut(_as_tensor(a), pad, devs, streams),
-                                place))
+                                place, pad))
     return out, b0
 
 
@@ -320,3 +325,251 @@ def on_device(owner, device, build: Callable):
     if device not in cache:
         cache[device] = build(device)
     return cache[device]
+
+
+# --- data-parallel training --------------------------------------------------
+# The reference's training putters shard the batch over 'data' and
+# replicate the parameters; GSPMD then computes the step of the whole
+# batch: the BatchNorm statistics, the loss normalizers and the dropout
+# masks are the global batch's.  The port's step over the shards keeps
+# those semantics in one process: every shard's forward runs in a thread
+# of its own on its own replica, and the batch-wide quantities meet
+# across the threads (``ShardStep.meet``).  The losses are cross-shard
+# sums formed on shard 0's device; one backward reaches every replica;
+# the replicas' gradients are summed onto shard 0's parameters, where
+# the optimizer steps.  Without a mesh a trainer's step is the same code
+# over one shard on its own device.
+
+STEP_TIMEOUT_S = 300.0     # a shard waiting this long at a meeting raises
+
+
+def _sum_onto(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
+    """The parts summed on ``device`` in shard order, with ``.to()`` and
+    ``+`` (so autograd carries the backward to every part)."""
+    total = parts[0].to(device)
+    for p in parts[1:]:
+        total = total + p.to(device)
+    return total
+
+
+def cross_shard_sum(parts: Sequence[torch.Tensor], devices: Sequence
+                    ) -> list:
+    """The sum of one partial tensor a shard, formed on ``devices[0]`` in
+    shard order and copied back to each shard's device: the same bits on
+    every shard, and differentiable to every shard's partial."""
+    total = _sum_onto(parts, devices[0])
+    return [total.to(d) for d in devices]
+
+
+class _Meeting:
+    """Where the shard threads of one step meet: each leaves its value,
+    the last to arrive runs ``combine`` over all of them (in shard order)
+    and each takes its own entry of the result.  A wait past ``timeout``
+    or a failure of another shard breaks the barrier, and every waiting
+    shard raises."""
+
+    def __init__(self, devices, timeout: float):
+        self.devices = list(devices)
+        self.values = [None] * len(self.devices)
+        self.combine = None
+        self.out = None
+        self.barrier = threading.Barrier(len(self.devices),
+                                         action=self._run,
+                                         timeout=timeout)
+
+    def _run(self):
+        self.out = self.combine(self.values)
+
+    def meet(self, index: int, value, combine: Callable):
+        self.values[index] = value
+        self.combine = combine
+        self.barrier.wait()
+        return self.out[index]
+
+
+@dataclasses.dataclass
+class ShardStep:
+    """What a shard's thread knows of the step it runs in: its index, the
+    shards' devices and the step's generator (on shard 0's device; the
+    global dropout masks come from it)."""
+    index: int
+    devices: list
+    generator: Optional[torch.Generator]
+    _meeting: _Meeting
+
+    def meet(self, value, combine: Callable):
+        """``combine([value of each shard])[self.index]``, once every shard
+        has called ``meet`` with its value."""
+        return self._meeting.meet(self.index, value, combine)
+
+
+_local = threading.local()
+
+
+def current_shard() -> Optional[ShardStep]:
+    """The ``ShardStep`` of the calling thread inside ``run_shards``, else
+    None (outside a data-parallel step nothing is shared)."""
+    return getattr(_local, 'step', None)
+
+
+_workers: dict = {}
+_workers_lock = threading.Lock()
+
+
+def _shard_workers(n: int) -> concurrent.futures.ThreadPoolExecutor:
+    """The n - 1 threads that run shards 1.. of an n-shard step, made once
+    and kept: PyTorch caches cuDNN's execution plans per thread, so a
+    thread made anew each step would build them again each step."""
+    with _workers_lock:
+        if n not in _workers:
+            _workers[n] = concurrent.futures.ThreadPoolExecutor(
+                n - 1, thread_name_prefix=f'shard-of-{n}')
+        return _workers[n]
+
+
+def run_shards(mesh: Mesh, fn: Callable, *args,
+               generator: Optional[torch.Generator] = None) -> list:
+    """``fn(i, device_i, *pieces_i)`` for every 'data' shard i, each in a
+    host thread of its own (the idiom of
+    ``torch.nn.parallel.parallel_apply``: shard 0 in the caller's, the
+    others in ``_shard_workers``), so that a meeting inside the forward
+    (BatchNorm's statistics, the dropout masks) finds the other shards'
+    calls.  Each shard sets its CUDA device, keeps the caller's grad mode
+    and knows its ``current_shard()``.  Returns the outputs in shard
+    order; a shard's exception is raised again here (a meeting that
+    waited past ``STEP_TIMEOUT_S``, or that another shard's failure
+    broke, as ``threading.BrokenBarrierError``)."""
+    devs = mesh.data_devices()
+    per = [a.pieces if isinstance(a, ShardedBatch) else a for a in args]
+    meeting = _Meeting(devs, STEP_TIMEOUT_S)
+    grad = torch.is_grad_enabled()
+    outs, errs = [None] * len(devs), [None] * len(devs)
+
+    def work(i):
+        d = devs[i]
+        ctx = (torch.cuda.device(d) if d.type == 'cuda'
+               else contextlib.nullcontext())
+        _local.step = ShardStep(i, devs, generator, meeting)
+        try:
+            with ctx, torch.set_grad_enabled(grad):
+                outs[i] = fn(i, d, *(p[i] for p in per))
+        except BaseException as e:      # raised again in the caller
+            errs[i] = e
+            meeting.barrier.abort()
+        finally:
+            _local.step = None
+
+    others = ([_shard_workers(len(devs)).submit(work, i)
+               for i in range(1, len(devs))] if len(devs) > 1 else [])
+    work(0)
+    concurrent.futures.wait(others)
+    failed = [e for e in errs if e is not None]
+    if failed:
+        # the shard that failed first, not the ones its abort woke
+        own = [e for e in failed
+               if not isinstance(e, threading.BrokenBarrierError)]
+        raise (own or failed)[0]
+    return outs
+
+
+class Replicas:
+    """One replica of a module per 'data' shard, the counterpart of the
+    reference's replicated parameters: shard 0's is the module itself
+    (its optimizer's parameters), every other shard's a copy on its
+    shard's device, even where that device repeats.
+
+    ``broadcast`` copies shard 0's parameters and buffers into the other
+    replicas; ``reduce_grads`` sums every replica's gradients in shard
+    order onto shard 0's parameters."""
+
+    def __init__(self, module: torch.nn.Module, mesh: Mesh):
+        self.devices = mesh.data_devices()
+        self.modules = [module] + [copy.deepcopy(module).to(d)
+                                   for d in self.devices[1:]]
+
+    def __getitem__(self, i: int) -> torch.nn.Module:
+        return self.modules[i]
+
+    @torch.no_grad()
+    def broadcast(self) -> None:
+        src = self.modules[0]
+        for m in self.modules[1:]:
+            for a, b in zip(m.parameters(), src.parameters()):
+                a.copy_(b)
+            for a, b in zip(m.buffers(), src.buffers()):
+                a.copy_(b)
+            m.train(src.training)
+
+    def zero_grad(self) -> None:
+        for m in self.modules:
+            m.zero_grad()
+
+    def reduce_grads(self) -> None:
+        for ps in zip(*(m.parameters() for m in self.modules)):
+            grads = [p.grad for p in ps if p.grad is not None]
+            if grads:
+                ps[0].grad = _sum_onto(grads, self.devices[0])
+
+
+def replicas_of(owner, module: torch.nn.Module, mesh: Mesh) -> Replicas:
+    """``Replicas`` of ``module`` over ``mesh``'s 'data' shards, made once
+    per device list and kept on ``owner`` (a trainer), then brought up to
+    shard 0's state (``broadcast``): whatever changed the module between
+    steps (an optimizer step, a restore) reaches every replica.  Raises
+    unless shard 0 lies on the module's device."""
+    devs = mesh.data_devices()
+    here = next(module.parameters()).device
+    if devs[0] != here:
+        raise ValueError(f'the mesh\'s first shard is on {devs[0]}, the '
+                         f'trainer on {here}: they must be the same')
+    cache = owner.__dict__.setdefault('_dp_replicas', {})
+    key = tuple(devs)
+    if key not in cache or cache[key][0] is not module:
+        cache[key] = Replicas(module, mesh)
+    reps = cache[key]
+    reps.broadcast()
+    return reps
+
+
+def shard_train_batch(mesh: Mesh, *arrays) -> list:
+    """``shard_batch`` for a training step, which takes no padding: a
+    repeated row would enter the batch's statistics and loss sums.
+    Raises ValueError unless the batch divides over 'data' and no
+    ``ShardedBatch`` given was padded."""
+    n = mesh.shape['data']
+    b0 = arrays[0].shape[0]
+    if b0 % n:
+        raise ValueError(f'a training batch of {b0} rows is not divisible '
+                         f'by the mesh data axis ({n})')
+    pad = max(getattr(a, 'pad', 0) for a in arrays)
+    if pad:
+        raise ValueError(f'a training batch must come unpadded: this '
+                         f'ShardedBatch repeats its last row {pad} times')
+    return _shard(mesh, arrays)[0]
+
+
+def step_over_shards(owner, module: torch.nn.Module, optimizer, mesh,
+                     forward: Callable, combine: Callable, *arrays,
+                     generator: Optional[torch.Generator] = None):
+    """One training step of ``module`` over ``mesh``'s 'data' shards (None:
+    one shard on the module's device), the step every trainer takes.
+
+    The batch ``arrays`` is cut over the shards (``shard_train_batch``);
+    ``forward(replica, device, *pieces)`` runs on each shard's replica in
+    its own thread (``run_shards``; ``generator`` is the step's, for the
+    global dropout masks); ``combine(outputs, devices, batch)`` returns
+    (loss on shard 0's device, result).  One backward, the replicas'
+    gradients summed onto ``module`` and ``optimizer``'s step there.
+    Returns the result."""
+    if mesh is None:
+        mesh = Mesh([next(module.parameters()).device], ('data',))
+    batch = shard_train_batch(mesh, *arrays)
+    reps = replicas_of(owner, module, mesh)
+    outs = run_shards(mesh, lambda i, dev, *xs: forward(reps[i], dev, *xs),
+                      *batch, generator=generator)
+    loss, result = combine(outs, reps.devices, batch)
+    reps.zero_grad()
+    loss.backward()
+    reps.reduce_grads()
+    optimizer.step()
+    return result

@@ -6,7 +6,10 @@ Rebuilds the reference's Keras fit_generator loop (01_train/demo.py:
 Nesterov momentum 0.9 (demo.py:60-61), optional per-class weighting, CLR
 or step-decay schedules, batch-F1 metric (utilities.py:69-97).  The model
 trains in train mode: BatchNorm on batch statistics (flax's update of the
-running ones) and dropout masks drawn from the step's generator.
+running ones) and dropout masks drawn from the step's generator.  The
+step runs over a mesh's 'data' shards (one shard without a mesh) with the
+global batch's statistics, loss and masks, as the reference's step on a
+sharded batch.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import torch.nn.functional as F
 
 from wsss_tpu_torch.eval.metrics import batch_f1
 from wsss_tpu_torch.models.backbones import _Classifier, init_random
+from wsss_tpu_torch.parallel.mesh import (Mesh, cross_shard_sum,
+                                          step_over_shards)
 from wsss_tpu_torch.train import schedules
 from wsss_tpu_torch.utils.device import resolve_device
 
@@ -31,14 +36,20 @@ LR_DROP = 0.5
 LR_DROPSTEP = 2000
 
 
-def bce_loss(logits: torch.Tensor, targets: torch.Tensor,
-             class_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Binary cross-entropy over sigmoid logits, mean over batch+classes."""
+def bce_terms(logits: torch.Tensor, targets: torch.Tensor,
+              class_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Binary cross-entropy of each logit [B, C], class-weighted."""
     per = -(targets * F.logsigmoid(logits)
             + (1.0 - targets) * F.logsigmoid(-logits))
     if class_weights is not None:
         per = per * class_weights[None, :]
-    return torch.mean(per)
+    return per
+
+
+def bce_loss(logits: torch.Tensor, targets: torch.Tensor,
+             class_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Binary cross-entropy over sigmoid logits, mean over batch+classes."""
+    return torch.mean(bce_terms(logits, targets, class_weights))
 
 
 class ClassifierTrainer:
@@ -68,21 +79,37 @@ class ClassifierTrainer:
         self.tx = schedules.sgd_nesterov(self.model.parameters(),
                                          self.sched, MOMENTUM)
 
-    def train_step(self, images: torch.Tensor, targets: torch.Tensor,
-                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        """One SGD step on normalized NHWC images and [B, C] targets; the
-        dropout masks come from ``generator`` (on the model's device).
-        Returns {'loss', 'f1'} as scalar tensors on the device."""
-        model = self.model.train()
-        images = images.to(self.device, torch.float32)
-        targets = targets.to(self.device, torch.float32)
-        logits = model.logits(images, generator)
-        loss = bce_loss(logits, targets, self.class_weights)
-        model.zero_grad()
-        loss.backward()
-        self.tx.step()
-        scores = torch.sigmoid(logits.detach())
-        return {'loss': loss.detach(), 'f1': batch_f1(targets, scores)}
+    def train_step(self, images, targets, generator: torch.Generator,
+                   mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+        """One SGD step on normalized NHWC images and [B, C] targets (tensors,
+        or ``ShardedBatch``es already on ``mesh``); the dropout masks come
+        from ``generator`` (on the model's device).  Returns {'loss', 'f1'}
+        as scalar tensors on the device.
+
+        The step runs over ``mesh``'s 'data' shards (None: one shard on the
+        model's device), ``parallel.mesh.step_over_shards``: each shard's
+        replica runs its rows with the global batch's BatchNorm statistics
+        and dropout masks (``models.backbones``); the loss is the
+        cross-shard sum of the weighted BCE terms over B * C, and F1 comes
+        from the gathered scores."""
+        def forward(model, dev, xi, ti):
+            logits = model.train().logits(xi.to(torch.float32), generator)
+            w = (None if self.class_weights is None
+                 else self.class_weights.to(dev))
+            return logits, bce_terms(logits, ti.to(torch.float32), w).sum()
+
+        def combine(outs, devices, batch):
+            b, c = batch[1].shape
+            loss = cross_shard_sum([o[1] for o in outs], devices)[0] / (b * c)
+            scores = torch.cat([torch.sigmoid(o[0].detach()).to(self.device)
+                                for o in outs])
+            targets = batch[1].gather(self.device).to(torch.float32)
+            return loss, {'loss': loss.detach(),
+                          'f1': batch_f1(targets, scores)}
+
+        return step_over_shards(self, self.model, self.tx, mesh, forward,
+                                combine, images, targets,
+                                generator=generator)
 
     @torch.no_grad()
     def eval_scores(self, images: torch.Tensor) -> torch.Tensor:

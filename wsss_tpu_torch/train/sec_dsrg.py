@@ -15,7 +15,9 @@ optax's chain (decayed weights, trace, multipliers, -lr) is one
 ``torch.optim.SGD`` with a parameter group per multiplier label: group
 lr = schedule * multiplier and weight decay on the weights only give the
 same update.  The CRF layer and (for DSRG) the region growing run inside
-the step on the tensors' device, with no gradient.
+the step on the tensors' device, with no gradient.  The step runs over a
+mesh's 'data' shards (one shard without a mesh) with the global batch's
+losses and dropout masks.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ from wsss_tpu_torch.methods.sec import sec_losses
 from wsss_tpu_torch.models.backbones import init_random
 from wsss_tpu_torch.models.deeplab import DSRGNet, SECNet
 from wsss_tpu_torch.ops.crf import config as crf_config
+from wsss_tpu_torch.parallel.mesh import (Mesh, cross_shard_sum,
+                                          step_over_shards)
 from wsss_tpu_torch.train import schedules
 from wsss_tpu_torch.utils.device import resolve_device
 
@@ -104,31 +108,53 @@ class SECDSRGTrainer:
         init_random(self.net, generator)
         self.tx = self._optimizer()
 
-    def loss_fn(self, imgs_norm: torch.Tensor, imgs_raw: torch.Tensor,
-                cues: torch.Tensor, labels: torch.Tensor,
-                generator: torch.Generator
+    def loss_fn(self, net: torch.nn.Module, imgs_norm: torch.Tensor,
+                imgs_raw: torch.Tensor, cues: torch.Tensor,
+                labels: torch.Tensor, generator: torch.Generator
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        logits = self.net.train()(imgs_norm, generator)
+        """The method's losses of ``net`` (the trainer's, or a replica of
+        it) in train mode on one batch."""
+        logits = net.train()(imgs_norm, generator)
         if self.method == 'SEC':
             return sec_losses(logits, cues, labels, imgs_raw, self.crf_cfg)
         return dsrg_losses(logits, cues, labels, imgs_raw, self.crf_cfg)
 
     def train_step(self, imgs_norm, imgs_raw, cues, labels,
-                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
+                   generator: torch.Generator, mesh: Optional[Mesh] = None
+                   ) -> Dict[str, torch.Tensor]:
         """One call of the step on NHWC batches (normalized and raw
         images, [B,41,41,C] cues, [B,C] tags): forward, losses, backward,
         optimizer.  The dropout masks come from ``generator`` (on the
-        net's device).  Returns the detached loss parts and 'total'."""
-        dev = self.device
-        to = lambda x: torch.as_tensor(x).to(dev, torch.float32)
-        loss, parts = self.loss_fn(to(imgs_norm), to(imgs_raw), to(cues),
-                                   to(labels), generator)
-        self.net.zero_grad()
-        loss.backward()
-        self.tx.step()
-        parts = {k: v.detach() for k, v in parts.items()}
-        parts['total'] = loss.detach()
-        return parts
+        net's device).  Returns the detached loss parts and 'total'.
+
+        The step runs over ``mesh``'s 'data' shards (None: one shard on
+        the net's device), ``parallel.mesh.step_over_shards``, with the
+        global batch's dropout masks; the CRF layer and the region growing
+        stay per shard (per image).  Every loss part is a batch mean of
+        per-image terms, so each is the cross-shard sum of its shards'
+        sums over B; 'grown_px' is summed; 'total' is the sum of the
+        parts."""
+        def forward(net, dev, *xs):
+            _, parts = self.loss_fn(net, *(x.to(torch.float32) for x in xs),
+                                    generator)
+            rows = xs[0].shape[0]
+            return {k: v if k == 'grown_px' else v * rows
+                    for k, v in parts.items()}
+
+        def combine(outs, devices, batch):
+            b = batch[0].shape[0]
+            parts = {}
+            for k in outs[0]:
+                s = cross_shard_sum([o[k] for o in outs], devices)[0]
+                parts[k] = s if k == 'grown_px' else s / b
+            loss = sum(v for k, v in parts.items() if k != 'grown_px')
+            parts = {k: v.detach() for k, v in parts.items()}
+            parts['total'] = loss.detach()
+            return loss, parts
+
+        return step_over_shards(self, self.net, self.tx, mesh, forward,
+                                combine, imgs_norm, imgs_raw, cues, labels,
+                                generator=generator)
 
     @torch.no_grad()
     def predict_logits(self, imgs_norm: torch.Tensor) -> torch.Tensor:
