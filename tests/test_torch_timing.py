@@ -1,5 +1,5 @@
-"""The port's progress meters and run log against the JAX package's, and
-its torch.profiler trace (the JAX package writes a jax.profiler one)."""
+"""The port's run log against the JAX package's, and its torch.profiler
+trace (the JAX package writes a jax.profiler one) over every thread."""
 import json
 import os
 
@@ -7,28 +7,8 @@ import numpy as np
 import torch
 
 from wsss_tpu.utils import timing as ref
+from wsss_tpu_torch.parallel import mesh as mesh_mod
 from wsss_tpu_torch.utils import timing
-
-
-def test_average_meter_equals_jax():
-    ours, theirs = timing.AverageMeter(), ref.AverageMeter()
-    for vals in ({'loss': 1.5, 'f1': 0.25}, {'loss': 0.5}, {'loss': 2.0}):
-        ours.add(vals)
-        theirs.add(vals)
-    assert ours.get('f1') == theirs.get('f1') == 0.25
-    assert ours.pop('loss') == theirs.pop('loss') == 4.0 / 3
-    ours.add({'loss': 3.0})
-    theirs.add({'loss': 3.0})
-    assert ours.get('loss') == theirs.get('loss') == 3.0
-
-
-def test_timer_eta_format():
-    t = timing.Timer()
-    t.update_progress(0.5)
-    eta = t.str_estimated_complete()
-    assert len(eta.split(':')) == 3 and t.get_stage_elapsed() >= 0
-    t.reset_stage()
-    assert t.get_stage_elapsed() < 1.0
 
 
 def test_metrics_logger_lines_read_by_both(tmp_path):
@@ -45,7 +25,6 @@ def test_metrics_logger_lines_read_by_both(tmp_path):
 
 
 def test_sync_and_profile_trace(tmp_path):
-    assert timing.sync(torch.arange(3.0) + 1) == 1.0
     with timing.profile_trace(None):
         pass
     with timing.profile_trace(str(tmp_path / 'prof')):
@@ -53,3 +32,18 @@ def test_sync_and_profile_trace(tmp_path):
     with open(tmp_path / 'prof' / 'trace.json') as f:
         assert 'traceEvents' in json.load(f)
     assert os.listdir(tmp_path / 'prof') == ['trace.json']
+
+
+def test_profile_trace_records_shard_threads(tmp_path):
+    """A span opened in a shard's worker thread, made before the profiler
+    started, lands in the written trace beside the caller's."""
+    mesh = mesh_mod.Mesh([torch.device('cpu')] * 2, ('data',))
+    mesh_mod._shard_workers(2).submit(lambda: None).result()
+    with timing.profile_trace(str(tmp_path)):
+        outs = mesh_mod.run_shards(mesh, lambda i, d: torch.ones(4) * i)
+    assert [float(o.sum()) for o in outs] == [0.0, 4.0]
+    with open(tmp_path / 'trace.json') as f:
+        events = json.load(f)['traceEvents']
+    tids = {e['tid'] for e in events if e.get('cat') == 'user_annotation'
+            and e['name'] == 'wsss.train.forward'}
+    assert len(tids) == 2

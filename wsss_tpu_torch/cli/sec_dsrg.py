@@ -44,7 +44,7 @@ from wsss_tpu_torch.ops.crf import config as crf_config
 from wsss_tpu_torch.ops.crf.meanfield import mean_field
 from wsss_tpu_torch.ops.filters import resize_bilinear, resize_nearest
 from wsss_tpu_torch.train.sec_dsrg import SECDSRGPredictor, SECDSRGTrainer
-from wsss_tpu_torch.utils.timing import MetricsLogger, profile_trace
+from wsss_tpu_torch.utils.timing import MetricsLogger, profile_trace, span
 
 SEED_SIZE = 41  # 03a model.py:35
 
@@ -76,28 +76,30 @@ def predict_image(predictor: SECDSRGPredictor, spec: registry.DatasetSpec,
     tensor) — the loop body of the reference's predict task
     (cli/sec_dsrg.py:214-249).  ``ref_round`` is the CRF's CPU-test
     switch (``mean_field``)."""
-    dev = predictor.device
-    out_hw = (int(out_hw[0]), int(out_hw[1]))
-    cfg = predict_crf_config(spec.name, method)
-    native = torch.as_tensor(native).to(dev, torch.float32)
-    net_in = resize_bilinear(native, (size, size))
-    norm = _normalizer(spec.norm_sec, dev)
-    logits = predictor.predict_logits(norm(net_in[None]))
-    probs = torch.softmax(resize_bilinear(logits, (size, size)), dim=-1)
-    if 'DeepGlobe' not in spec.name:
-        # score map and image to GT resolution, CRF there
-        probs = torch.clamp(resize_bilinear(probs, out_hw), 1e-8, 1.0)
-        probs = probs / probs.sum(-1, keepdim=True)
-        guide = (native if tuple(native.shape[:2]) == out_hw
-                 else resize_bilinear(native, out_hw))
-        q = mean_field(probs, guide[None], cfg, ref_round=ref_round)
-        return torch.argmax(q, dim=-1)[0].to(torch.int32)
-    q = mean_field(probs, net_in[None], cfg, ref_round=ref_round)
-    pred = torch.argmax(q, dim=-1)[0]
-    if tuple(pred.shape) != out_hw:
-        pred = resize_nearest(pred.to(torch.float32)[..., None],
-                              out_hw)[..., 0]
-    return pred.to(torch.int32)
+    with span('wsss.sec.predict_image'):
+        dev = predictor.device
+        out_hw = (int(out_hw[0]), int(out_hw[1]))
+        cfg = predict_crf_config(spec.name, method)
+        with span('wsss.io.to_device'):
+            native = torch.as_tensor(native).to(dev, torch.float32)
+        net_in = resize_bilinear(native, (size, size))
+        norm = _normalizer(spec.norm_sec, dev)
+        logits = predictor.predict_logits(norm(net_in[None]))
+        probs = torch.softmax(resize_bilinear(logits, (size, size)), dim=-1)
+        if 'DeepGlobe' not in spec.name:
+            # score map and image to GT resolution, CRF there
+            probs = torch.clamp(resize_bilinear(probs, out_hw), 1e-8, 1.0)
+            probs = probs / probs.sum(-1, keepdim=True)
+            guide = (native if tuple(native.shape[:2]) == out_hw
+                     else resize_bilinear(native, out_hw))
+            q = mean_field(probs, guide[None], cfg, ref_round=ref_round)
+            return torch.argmax(q, dim=-1)[0].to(torch.int32)
+        q = mean_field(probs, net_in[None], cfg, ref_round=ref_round)
+        pred = torch.argmax(q, dim=-1)[0]
+        if tuple(pred.shape) != out_hw:
+            pred = resize_nearest(pred.to(torch.float32)[..., None],
+                                  out_hw)[..., 0]
+        return pred.to(torch.int32)
 
 
 def _load_cues(path):
@@ -190,7 +192,8 @@ def train(args, trainer: SECDSRGTrainer, spec, run_id: str, size: int,
                                                grid)
                 else:
                     cues, labels = _synthetic_cues(b.gt, n_cls, grid, step)
-                imgs = torch.as_tensor(b.images).to(dev, torch.float32)
+                with span('wsss.io.to_device'):
+                    imgs = torch.as_tensor(b.images).to(dev, torch.float32)
                 parts = trainer.train_step(
                     norm(imgs), imgs, cues, labels,
                     torch.Generator(dev).manual_seed(step), mesh=mesh)

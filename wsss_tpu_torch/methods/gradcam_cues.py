@@ -41,6 +41,7 @@ from wsss_tpu_torch.ops import gradcam as gc_ops
 from wsss_tpu_torch.ops.filters import resize_bilinear
 from wsss_tpu_torch.parallel.mesh import map_shards, mesh_batches, on_device
 from wsss_tpu_torch.utils.device import resolve_device
+from wsss_tpu_torch.utils.timing import span
 
 SEED_SIZE = 41  # 02_cues/demo.py:65
 
@@ -113,7 +114,9 @@ class _ClassifierHandle:
 
 def _to(x, device) -> torch.Tensor:
     """A host batch (numpy or tensor) as float32 on ``device``."""
-    return torch.as_tensor(x).to(device, torch.float32, non_blocking=True)
+    with span('wsss.io.to_device'):
+        return torch.as_tensor(x).to(device, torch.float32,
+                                     non_blocking=True)
 
 
 class VOCDeepGlobeCueGenerator:
@@ -139,10 +142,11 @@ class VOCDeepGlobeCueGenerator:
         self._norm = _normalizer(spec.norm_cues, self.device)
 
     def _run_net(self, handle, x, gt_tags):
-        scores, feats = handle.model(x)
-        is_pass = (scores >= handle.thresholds[None]) & (gt_tags > 0.5)
-        cams = gc_ops.grad_cam(feats, handle.weights, is_pass)
-        return resize_bilinear(cams, (self.seed_size,) * 2), is_pass
+        with span('wsss.cam'):
+            scores, feats = handle.model(x)
+            is_pass = (scores >= handle.thresholds[None]) & (gt_tags > 0.5)
+            cams = gc_ops.grad_cam(feats, handle.weights, is_pass)
+            return resize_bilinear(cams, (self.seed_size,) * 2), is_pass
 
     def _cams(self, imgs_raw, gt_tags):
         """(fg seed CAMs, bg seed CAMs or None, is_pass) of a batch."""
@@ -198,14 +202,17 @@ class VOCDeepGlobeCueGenerator:
         out: Dict[str, np.ndarray] = {}
         for b, (imgs, tags), b0 in mesh_batches(
                 mesh, batches, lambda b: (b.images, b.tags)):
-            if mesh is not None:
-                onehot, is_pass = self._generate_sharded(mesh, imgs, tags,
-                                                         b0)
-            else:
-                onehot, is_pass = self.generate_batch(imgs, tags)
-            artifacts.pack_cues(onehot.cpu().numpy(),
-                                self.class_inds(is_pass.cpu().numpy()),
-                                list(b.indices), out)
+            with span('wsss.cues.batch'):
+                if mesh is not None:
+                    onehot, is_pass = self._generate_sharded(mesh, imgs,
+                                                             tags, b0)
+                else:
+                    onehot, is_pass = self.generate_batch(imgs, tags)
+                with span('wsss.io.to_host'):
+                    onehot, is_pass = (t.cpu().numpy()
+                                       for t in (onehot, is_pass))
+                artifacts.pack_cues(onehot, self.class_inds(is_pass),
+                                    list(b.indices), out)
             if verbose:
                 print(f'  cues for images {b.indices[0]}..{b.indices[-1]}')
         return out
@@ -320,17 +327,19 @@ class ADPCueGenerator:
         out_f: Dict[str, np.ndarray] = {}
         for b, (imgs,), b0 in mesh_batches(mesh, batches,
                                            lambda b: (b.images,)):
-            if mesh is not None:
-                oh_m, oh_f, is_pass = map_shards(
-                    mesh, lambda d, x: self._on(d).generate_batch(x), imgs,
-                    b0=b0)
-            else:
-                oh_m, oh_f, is_pass = self.generate_batch(imgs)
-            m_inds, f_inds = self.class_inds(is_pass.cpu().numpy())
-            artifacts.pack_cues(oh_m.cpu().numpy(), m_inds,
-                                list(b.indices), out_m)
-            artifacts.pack_cues(oh_f.cpu().numpy(), f_inds,
-                                list(b.indices), out_f)
+            with span('wsss.cues.batch'):
+                if mesh is not None:
+                    oh_m, oh_f, is_pass = map_shards(
+                        mesh, lambda d, x: self._on(d).generate_batch(x),
+                        imgs, b0=b0)
+                else:
+                    oh_m, oh_f, is_pass = self.generate_batch(imgs)
+                with span('wsss.io.to_host'):
+                    oh_m, oh_f, is_pass = (t.cpu().numpy() for t in
+                                           (oh_m, oh_f, is_pass))
+                m_inds, f_inds = self.class_inds(is_pass)
+                artifacts.pack_cues(oh_m, m_inds, list(b.indices), out_m)
+                artifacts.pack_cues(oh_f, f_inds, list(b.indices), out_f)
             if verbose:
                 print(f'  ADP cues for images '
                       f'{b.indices[0]}..{b.indices[-1]}')

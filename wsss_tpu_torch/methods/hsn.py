@@ -32,6 +32,7 @@ from wsss_tpu_torch.ops.crf import config as crf_config
 from wsss_tpu_torch.ops.crf.meanfield import _mxu_ok, mean_field
 from wsss_tpu_torch.parallel.mesh import map_shards, on_device, shard_batch
 from wsss_tpu_torch.utils.device import resolve_device
+from wsss_tpu_torch.utils.timing import span
 
 HSN_THRESHOLD = 1.0 / 3.0
 
@@ -59,11 +60,12 @@ class HSNSegmenter:
         self._norm = _normalizer(spec.norm_cues, self.device)
 
     def _cams(self, handle: _ClassifierHandle, x: torch.Tensor):
-        scores, feats = handle.model(x)
-        size = handle.input_size
-        return gc_ops.grad_cam_confidence(
-            feats, handle.weights, scores >= HSN_THRESHOLD, scores,
-            upsample_hw=(size, size))
+        with span('wsss.cam'):
+            scores, feats = handle.model(x)
+            size = handle.input_size
+            return gc_ops.grad_cam_confidence(
+                feats, handle.weights, scores >= HSN_THRESHOLD, scores,
+                upsample_hw=(size, size))
 
     def _on(self, device) -> 'HSNSegmenter':
         return on_device(self, device, lambda d: HSNSegmenter(
@@ -114,10 +116,13 @@ class HSNSegmenter:
         """imgs_raw: [B,S,S,3] RGB 0..255, uint8 or float, numpy or a
         tensor (or placed on ``mesh`` by ``shard_batch``) -> labels
         [B,S,S] int32 on the device (the first shard's, with a mesh)."""
-        if mesh is not None:
-            return self._segment_mesh(imgs_raw, mesh)
-        imgs = torch.as_tensor(imgs_raw).to(self.device, torch.float32)
-        return self._labels(self.probs(imgs), imgs)
+        with span('wsss.hsn.segment_batch'):
+            if mesh is not None:
+                return self._segment_mesh(imgs_raw, mesh)
+            with span('wsss.io.to_device'):
+                imgs = torch.as_tensor(imgs_raw).to(self.device,
+                                                    torch.float32)
+            return self._labels(self.probs(imgs), imgs)
 
     def _segment_mesh(self, imgs_raw, mesh) -> torch.Tensor:
         (imgs,), b0 = shard_batch(mesh, imgs_raw)
@@ -222,13 +227,17 @@ class ADPHSNSegmenter:
         Nothing of the ADP step reduces over the batch, so with a mesh
         every shard runs the whole step on its images, whichever program
         the reference would run."""
-        if mesh is not None:
-            (imgs,), b0 = shard_batch(mesh, imgs_raw)
-            return map_shards(mesh, lambda d, x: self._on(d).segment_batch(x),
-                              imgs, b0=b0)
-        imgs = torch.as_tensor(imgs_raw).to(self.device, torch.float32)
-        cs_m, cs_f = self.probs(imgs)
-        q_m = mean_field(cs_m, imgs, self.cfg_morph)
-        q_f = mean_field(cs_f, imgs, self.cfg_func)
-        return (torch.argmax(q_m, dim=-1).to(torch.int32),
-                torch.argmax(q_f, dim=-1).to(torch.int32))
+        with span('wsss.hsn.segment_batch'):
+            if mesh is not None:
+                (imgs,), b0 = shard_batch(mesh, imgs_raw)
+                return map_shards(
+                    mesh, lambda d, x: self._on(d).segment_batch(x), imgs,
+                    b0=b0)
+            with span('wsss.io.to_device'):
+                imgs = torch.as_tensor(imgs_raw).to(self.device,
+                                                    torch.float32)
+            cs_m, cs_f = self.probs(imgs)
+            q_m = mean_field(cs_m, imgs, self.cfg_morph)
+            q_f = mean_field(cs_f, imgs, self.cfg_func)
+            return (torch.argmax(q_m, dim=-1).to(torch.int32),
+                    torch.argmax(q_f, dim=-1).to(torch.int32))

@@ -45,6 +45,7 @@ from wsss_tpu_torch.kernels.bilateral import bf16_round
 from wsss_tpu_torch.ops.crf import mxu_grid as _mxu
 from wsss_tpu_torch.ops.crf import native as _native
 from wsss_tpu_torch.ops.filters import resize_bilinear
+from wsss_tpu_torch.utils.timing import span
 
 # the bilateral message is computed on a guide resampled to MXU_DS_CELL-px
 # cells when the spatial kernel is wide (bi_sxy >= MXU_DS_MIN_SXY), and
@@ -333,26 +334,28 @@ class BilateralGrid:
         """Approximate K @ x per image; x [B,H,W,C] (or [H,W,C] for a
         single guide).  The colour blur is the ``flat_color_blur`` kernel
         on whole-F stripes (its plain version on the CPU)."""
-        if self._squeeze:
-            x = x[None]
-        b, h, w = self.bhw
-        if tuple(x.shape[:3]) != self.bhw:
-            raise ValueError(f'filter input {tuple(x.shape)} does not '
-                             f'match the guide {self.bhw}')
-        c = x.shape[-1]
-        gy, gx = self.gshape[:2]
-        g = self.splat(x)
-        g = _sep_conv(g, self.blur_ks[0], 1)
-        g = _sep_conv(g, self.blur_ks[1], 2)
-        g = K.flat_color_blur(g.view(b * gy * gx, -1), self.color_passes(c))
-        gflat = g.view(b * self.nflat, c)
-        # corner loop: peak memory stays at [B*N, C] per step
-        out = torch.zeros((b * h * w, c), dtype=torch.float32,
-                          device=x.device)
-        for i in range(self.idx.shape[0]):
-            out = out + self.wgt[i][:, None] * gflat[self.idx[i]]
-        out = out.view(b, h, w, c)
-        return out[0] if self._squeeze else out
+        with span('wsss.grid.filter'):
+            if self._squeeze:
+                x = x[None]
+            b, h, w = self.bhw
+            if tuple(x.shape[:3]) != self.bhw:
+                raise ValueError(f'filter input {tuple(x.shape)} does not '
+                                 f'match the guide {self.bhw}')
+            c = x.shape[-1]
+            gy, gx = self.gshape[:2]
+            g = self.splat(x)
+            g = _sep_conv(g, self.blur_ks[0], 1)
+            g = _sep_conv(g, self.blur_ks[1], 2)
+            g = K.flat_color_blur(g.view(b * gy * gx, -1),
+                                  self.color_passes(c))
+            gflat = g.view(b * self.nflat, c)
+            # corner loop: peak memory stays at [B*N, C] per step
+            out = torch.zeros((b * h * w, c), dtype=torch.float32,
+                              device=x.device)
+            for i in range(self.idx.shape[0]):
+                out = out + self.wgt[i][:, None] * gflat[self.idx[i]]
+            out = out.view(b, h, w, c)
+            return out[0] if self._squeeze else out
 
 
 def _shift2d(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -392,9 +395,10 @@ class DirectBilateral:
         self.srgb = srgb
 
     def filter(self, x: torch.Tensor) -> torch.Tensor:
-        if self._squeeze:
-            return self._filter(x[None])[0]
-        return self._filter(x)
+        with span('wsss.grid.filter'):
+            if self._squeeze:
+                return self._filter(x[None])[0]
+            return self._filter(x)
 
     def _filter(self, x: torch.Tensor) -> torch.Tensor:
         """x [B,H,W,C] -> K @ x per image."""
@@ -437,8 +441,15 @@ class DirectBilateral:
 class DenseBilateral:
     """Exact bilateral filter through the materialized [N, N] kernel, for
     small pixel counts (the 41x41 seed-grid CRF inside SEC/DSRG training:
-    11 MB an image and one matrix product a filter), on guide images
-    [B,H,W,3] or one [H,W,3]."""
+    11 MB an image and one matrix product an image a filter), on guide
+    images [B,H,W,3] or one [H,W,3].
+
+    One product an image, not one batched product: a batched product
+    sums an image's rows in an order that depends on the batch's size (on
+    the CPU a one-channel normalizer moved by 3e-7; on an H100 a batch of
+    8 moved the posterior by 1.2e-6 against its images one at a time),
+    which the training CRF's near-ties amplify, so a data-parallel step's
+    shards would not reach the one-device step's posteriors."""
 
     def __init__(self, imgs: torch.Tensor, sxy: float, srgb: float):
         imgs, self._squeeze = _batched(imgs.to(torch.float32))
@@ -457,12 +468,13 @@ class DenseBilateral:
                            - 0.5 * c2 / (srgb * srgb))       # [B,N,N]
 
     def filter(self, x: torch.Tensor) -> torch.Tensor:
-        b, h, w = self.bhw
-        if self._squeeze:
-            x = x[None]
-        out = torch.matmul(self.K, x.reshape(b, h * w, -1)).view(
-            b, h, w, -1)
-        return out[0] if self._squeeze else out
+        with span('wsss.grid.filter'):
+            b, h, w = self.bhw
+            if self._squeeze:
+                x = x[None]
+            out = torch.stack([k @ xi.reshape(h * w, -1)
+                               for k, xi in zip(self.K, x)]).view(b, h, w, -1)
+            return out[0] if self._squeeze else out
 
 
 def make_bilateral(imgs: torch.Tensor, sxy: float, srgb: float,
@@ -557,44 +569,45 @@ def _mean_field_mxu(probs: torch.Tensor, imgs: torch.Tensor, *, g_sxy,
     their float32 inputs and outputs: the filter's bf16 input is cast up
     exactly and its output rounds to bf16, where the reference's filter
     returns its input's dtype.  Returns float32."""
-    c = probs.shape[-1]
-    h, w = probs.shape[-3:-1]
-    imgs = imgs.to(torch.float32)
-    U = -torch.log(torch.clamp(probs.to(torch.float32), min=1e-10))
-    logits0 = -U - torch.amax(-U, dim=-1, keepdim=True)
-    Q = torch.softmax(logits0, dim=-1)
+    with span('wsss.crf.build'):
+        c = probs.shape[-1]
+        h, w = probs.shape[-3:-1]
+        imgs = imgs.to(torch.float32)
+        U = -torch.log(torch.clamp(probs.to(torch.float32), min=1e-10))
+        logits0 = -U - torch.amax(-U, dim=-1, keepdim=True)
+        Q = torch.softmax(logits0, dim=-1)
 
-    use_ds = (not _MXU_DS_DISABLED and bi_sxy >= MXU_DS_MIN_SXY
-              and min(h, w) >= 2 * bi_sxy)
-    if use_ds:
-        f = bi_sxy / float(MXU_DS_CELL)
-        hd, wd = max(int(round(h / f)), 8), max(int(round(w / f)), 8)
-        img_g = resize_bilinear(imgs, (hd, wd))
-        sxy_g = float(MXU_DS_CELL)
-    else:
-        img_g, sxy_g, (hd, wd) = imgs, bi_sxy, (h, w)
+        use_ds = (not _MXU_DS_DISABLED and bi_sxy >= MXU_DS_MIN_SXY
+                  and min(h, w) >= 2 * bi_sxy)
+        if use_ds:
+            f = bi_sxy / float(MXU_DS_CELL)
+            hd, wd = max(int(round(h / f)), 8), max(int(round(w / f)), 8)
+            img_g = resize_bilinear(imgs, (hd, wd))
+            sxy_g = float(MXU_DS_CELL)
+        else:
+            img_g, sxy_g, (hd, wd) = imgs, bi_sxy, (h, w)
 
-    grid = _mxu.MXUBilateralGrid(img_g, sxy_g, bi_srgb, c,
-                                 cell_mult=cell_mult, ref_round=ref_round)
-    grid1 = _mxu.MXUBilateralGrid(img_g, sxy_g, bi_srgb, 1,
-                                  cell_mult=cell_mult, share_from=grid,
-                                  ref_round=ref_round)
-    ones_g = torch.ones(img_g.shape[:3] + (1,), dtype=torch.float32,
-                        device=probs.device)
-    n_b = torch.rsqrt(torch.clamp(grid1.filter(ones_g), min=1e-20))
-    # the upsampled normalizer only feeds the self-exclusion term
-    n_b_up = resize_bilinear(n_b, (h, w)) if use_ds else n_b
-    if g_compat:
-        ones = torch.ones(Q.shape[:3] + (1,), dtype=torch.float32,
-                          device=probs.device)
-        n_g = torch.rsqrt(torch.clamp(_gaussian_filter_raw(ones, g_sxy),
-                                      min=1e-20))
-    msg_dtype = None
-    if state_bf16:
-        msg_dtype = torch.bfloat16
-        U, Q, n_b, n_b_up = (t.to(msg_dtype) for t in (U, Q, n_b, n_b_up))
+        grid = _mxu.MXUBilateralGrid(img_g, sxy_g, bi_srgb, c,
+                                     cell_mult=cell_mult, ref_round=ref_round)
+        grid1 = _mxu.MXUBilateralGrid(img_g, sxy_g, bi_srgb, 1,
+                                      cell_mult=cell_mult, share_from=grid,
+                                      ref_round=ref_round)
+        ones_g = torch.ones(img_g.shape[:3] + (1,), dtype=torch.float32,
+                            device=probs.device)
+        n_b = torch.rsqrt(torch.clamp(grid1.filter(ones_g), min=1e-20))
+        # the upsampled normalizer only feeds the self-exclusion term
+        n_b_up = resize_bilinear(n_b, (h, w)) if use_ds else n_b
         if g_compat:
-            n_g = n_g.to(msg_dtype)
+            ones = torch.ones(Q.shape[:3] + (1,), dtype=torch.float32,
+                              device=probs.device)
+            n_g = torch.rsqrt(torch.clamp(_gaussian_filter_raw(ones, g_sxy),
+                                          min=1e-20))
+        msg_dtype = None
+        if state_bf16:
+            msg_dtype = torch.bfloat16
+            U, Q, n_b, n_b_up = (t.to(msg_dtype) for t in (U, Q, n_b, n_b_up))
+            if g_compat:
+                n_g = n_g.to(msg_dtype)
 
     def bilateral(v):
         if ref_round:
@@ -603,24 +616,25 @@ def _mean_field_mxu(probs: torch.Tensor, imgs: torch.Tensor, *, g_sxy,
             return grid.filter(v.to(torch.float32)).to(v.dtype)
         return grid.filter(v)
 
-    for _ in range(iterations):
-        msg = 0.
-        if g_compat:
-            m = n_g * _gaussian_filter_raw(n_g * Q, g_sxy,
-                                           ref_round=ref_round,
-                                           dtype=msg_dtype)
+    with span('wsss.crf.loop'):
+        for _ in range(iterations):
+            msg = 0.
+            if g_compat:
+                m = n_g * _gaussian_filter_raw(n_g * Q, g_sxy,
+                                               ref_round=ref_round,
+                                               dtype=msg_dtype)
+                if exclude_self:
+                    m = m - (n_g * n_g) * Q
+                msg = msg + g_compat * m
+            if use_ds:
+                q_d = resize_bilinear(Q, (hd, wd))
+                m = resize_bilinear(n_b * bilateral(n_b * q_d), (h, w))
+            else:
+                m = n_b * bilateral(n_b * Q)
             if exclude_self:
-                m = m - (n_g * n_g) * Q
-            msg = msg + g_compat * m
-        if use_ds:
-            q_d = resize_bilinear(Q, (hd, wd))
-            m = resize_bilinear(n_b * bilateral(n_b * q_d), (h, w))
-        else:
-            m = n_b * bilateral(n_b * Q)
-        if exclude_self:
-            m = m - (n_b_up * n_b_up) * Q
-        msg = msg + bi_compat * m
-        Q = torch.softmax(-U + msg, dim=-1)
+                m = m - (n_b_up * n_b_up) * Q
+            msg = msg + bi_compat * m
+            Q = torch.softmax(-U + msg, dim=-1)
     return Q.to(torch.float32)
 
 
@@ -630,33 +644,35 @@ def _mean_field_single(probs: torch.Tensor, imgs: torch.Tensor, *, g_sxy,
     """Mean field of a batch [B, H, W, C] on the structure
     ``make_bilateral`` picks, f32 state (the reference runs it per image,
     vmapped or looped)."""
-    imgs = imgs.to(torch.float32)
-    U = -torch.log(torch.clamp(probs.to(torch.float32), min=1e-10))
-    logits0 = -U - torch.amax(-U, dim=-1, keepdim=True)
-    Q = torch.softmax(logits0, dim=-1)
+    with span('wsss.crf.build'):
+        imgs = imgs.to(torch.float32)
+        U = -torch.log(torch.clamp(probs.to(torch.float32), min=1e-10))
+        logits0 = -U - torch.amax(-U, dim=-1, keepdim=True)
+        Q = torch.softmax(logits0, dim=-1)
 
-    # loop-invariant: splat geometry and the symmetric normalizers
-    ones = torch.ones(Q.shape[:3] + (1,), dtype=torch.float32,
-                      device=Q.device)
-    if bi_compat:
-        grid = make_bilateral(imgs, bi_sxy, bi_srgb, ref_round=ref_round)
-        n_b = torch.rsqrt(torch.clamp(grid.filter(ones), min=1e-20))
-    if g_compat:
-        n_g = torch.rsqrt(torch.clamp(_gaussian_filter_raw(ones, g_sxy),
-                                      min=1e-20))
-    for _ in range(iterations):
-        msg = 0.
-        if g_compat:
-            m = n_g * _gaussian_filter_raw(n_g * Q, g_sxy)
-            if exclude_self:
-                m = m - (n_g * n_g) * Q
-            msg = msg + g_compat * m
+        # loop-invariant: splat geometry and the symmetric normalizers
+        ones = torch.ones(Q.shape[:3] + (1,), dtype=torch.float32,
+                          device=Q.device)
         if bi_compat:
-            m = n_b * grid.filter(n_b * Q)
-            if exclude_self:
-                m = m - (n_b * n_b) * Q
-            msg = msg + bi_compat * m
-        Q = torch.softmax(-U + msg, dim=-1)
+            grid = make_bilateral(imgs, bi_sxy, bi_srgb, ref_round=ref_round)
+            n_b = torch.rsqrt(torch.clamp(grid.filter(ones), min=1e-20))
+        if g_compat:
+            n_g = torch.rsqrt(torch.clamp(_gaussian_filter_raw(ones, g_sxy),
+                                          min=1e-20))
+    with span('wsss.crf.loop'):
+        for _ in range(iterations):
+            msg = 0.
+            if g_compat:
+                m = n_g * _gaussian_filter_raw(n_g * Q, g_sxy)
+                if exclude_self:
+                    m = m - (n_g * n_g) * Q
+                msg = msg + g_compat * m
+            if bi_compat:
+                m = n_b * grid.filter(n_b * Q)
+                if exclude_self:
+                    m = m - (n_b * n_b) * Q
+                msg = msg + bi_compat * m
+            Q = torch.softmax(-U + msg, dim=-1)
     return Q
 
 
@@ -696,32 +712,33 @@ def mean_field(probs: torch.Tensor, img: torch.Tensor, config,
     if probs.ndim == 3:
         return mean_field(probs[None], img[None], config,
                           exclude_self=exclude_self, ref_round=ref_round)[0]
-    b, h, w, c = probs.shape
-    hw = (h, w)
-    kw = dict(g_sxy=config.g_sxy, g_compat=config.g_compat,
-              bi_sxy=config.bi_sxy, bi_srgb=config.bi_srgb,
-              bi_compat=config.bi_compat, iterations=config.iterations,
-              exclude_self=exclude_self, ref_round=ref_round)
-    mxu = _mxu_ok(hw, c, config)
-    if (probs.device.type == 'cpu' and img.device.type == 'cpu'
-            and config.bi_compat and not mxu
-            and _routes_to_grid(hw, config.bi_sxy, config.bi_srgb)
-            and _fine_color_native_ok(hw, config)):
-        p_np = probs.detach().to(torch.float32).numpy()
-        i_np = img.detach().to(torch.float32).numpy()
-        return torch.from_numpy(np.stack([_native.mean_field_native(
-            p_np[i], i_np[i], config, exclude_self=exclude_self)
-            for i in range(b)]))
-    if mxu:
-        return _mean_field_mxu(probs, img, **kw,
-                               state_bf16=(_CRF_STATE_BF16 and
-                                           probs.device.type == 'cuda'))
-    chunk = _single_chunk(b, hw, c, config)
-    if chunk >= b:
-        return _mean_field_single(probs, img, **kw)
-    return torch.cat([_mean_field_single(probs[s:s + chunk],
-                                         img[s:s + chunk], **kw)
-                      for s in range(0, b, chunk)])
+    with span('wsss.crf.mean_field'):
+        b, h, w, c = probs.shape
+        hw = (h, w)
+        kw = dict(g_sxy=config.g_sxy, g_compat=config.g_compat,
+                  bi_sxy=config.bi_sxy, bi_srgb=config.bi_srgb,
+                  bi_compat=config.bi_compat, iterations=config.iterations,
+                  exclude_self=exclude_self, ref_round=ref_round)
+        mxu = _mxu_ok(hw, c, config)
+        if (probs.device.type == 'cpu' and img.device.type == 'cpu'
+                and config.bi_compat and not mxu
+                and _routes_to_grid(hw, config.bi_sxy, config.bi_srgb)
+                and _fine_color_native_ok(hw, config)):
+            p_np = probs.detach().to(torch.float32).numpy()
+            i_np = img.detach().to(torch.float32).numpy()
+            return torch.from_numpy(np.stack([_native.mean_field_native(
+                p_np[i], i_np[i], config, exclude_self=exclude_self)
+                for i in range(b)]))
+        if mxu:
+            return _mean_field_mxu(probs, img, **kw,
+                                   state_bf16=(_CRF_STATE_BF16 and
+                                               probs.device.type == 'cuda'))
+        chunk = _single_chunk(b, hw, c, config)
+        if chunk >= b:
+            return _mean_field_single(probs, img, **kw)
+        return torch.cat([_mean_field_single(probs[s:s + chunk],
+                                             img[s:s + chunk], **kw)
+                          for s in range(0, b, chunk)])
 
 
 def crf_label_refine(img: torch.Tensor, labels: torch.Tensor, n_labels: int,

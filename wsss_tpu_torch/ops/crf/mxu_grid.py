@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from wsss_tpu_torch.kernels import bilateral as K
+from wsss_tpu_torch.utils.timing import span
 
 _BLUR_RADIUS = 2            # colour-axis taps
 _MAX_TILE = 48              # spatial cell cap of the TPU tiling
@@ -236,50 +237,52 @@ class MXUBilateralGrid:
     def filter(self, x: torch.Tensor) -> torch.Tensor:
         """Approximate K @ x per image; x [B, H, W, C'] with C' <= n_ch
         (fewer channels are zero-padded through the grid and cut off)."""
-        if tuple(x.shape[:3]) != self.bhw:
-            raise ValueError(f'filter input {tuple(x.shape)} does not '
-                             f'match the guide {self.bhw}')
-        cin = x.shape[-1]
-        if cin > self.n_ch:
-            raise ValueError(f'filter input has {cin} channels; grid '
-                             f'built for {self.n_ch}')
-        x = x.to(torch.float32)
-        if cin < self.n_ch:
-            x = torch.nn.functional.pad(x, (0, self.n_ch - cin))
-        x = x.contiguous()
-        t, gy, gx, gc = self.t, self.gy, self.gx, self.gc
-        if gc ** 3 * self.n_ch > _CUBE_BLUR_MAX:
-            raise ValueError(
-                f'colour cube of gc^3 * C = {gc ** 3 * self.n_ch} elements '
-                f'exceeds {_CUBE_BLUR_MAX}: no blur kernel of the port '
-                'takes it (`applicable` admits at most 625 000)')
+        with span('wsss.grid.filter'):
+            if tuple(x.shape[:3]) != self.bhw:
+                raise ValueError(f'filter input {tuple(x.shape)} does not '
+                                 f'match the guide {self.bhw}')
+            cin = x.shape[-1]
+            if cin > self.n_ch:
+                raise ValueError(f'filter input has {cin} channels; grid '
+                                 f'built for {self.n_ch}')
+            x = x.to(torch.float32)
+            if cin < self.n_ch:
+                x = torch.nn.functional.pad(x, (0, self.n_ch - cin))
+            x = x.contiguous()
+            t, gy, gx, gc = self.t, self.gy, self.gx, self.gc
+            if gc ** 3 * self.n_ch > _CUBE_BLUR_MAX:
+                raise ValueError(
+                    f'colour cube of gc^3 * C = {gc ** 3 * self.n_ch} '
+                    f'elements exceeds {_CUBE_BLUR_MAX}: no blur kernel of '
+                    'the port takes it (`applicable` admits at most '
+                    '625 000)')
 
-        def run(name, *args):
-            """The kernel's wrapper, or with ref_round its plain version
-            rounding where the reference kernel does."""
+            def run(name, *args):
+                """The kernel's wrapper, or with ref_round its plain version
+                rounding where the reference kernel does."""
+                if self.ref_round:
+                    return getattr(K, name + '_plain')(*args, ref_round=True)
+                return getattr(K, name)(*args)
+
+            if self.v2:
+                grid = run('bilateral_splat', x, self.cell, t, gy, gx, gc)
+                grid = run('bilateral_color_blur', grid, self.taps)
+                grid = self._spatial_blur(grid)
+            else:
+                part = run('bilateral_splat_tiles', x, self.cell, t, gc)
+                if self.fuse_combine_blur:
+                    grid = run('bilateral_fold_blur', part, self.taps)
+                    grid = self._spatial_blur(grid)
+                else:       # the spatial blur comes before the colour blur
+                    grid = run('bilateral_fold', part)
+                    del part
+                    grid = self._spatial_blur(grid)
+                    grid = run('bilateral_cube_blur', grid, self.taps)
             if self.ref_round:
-                return getattr(K, name + '_plain')(*args, ref_round=True)
-            return getattr(K, name)(*args)
-
-        if self.v2:
-            grid = run('bilateral_splat', x, self.cell, t, gy, gx, gc)
-            grid = run('bilateral_color_blur', grid, self.taps)
-            grid = self._spatial_blur(grid)
-        else:
-            part = run('bilateral_splat_tiles', x, self.cell, t, gc)
-            if self.fuse_combine_blur:
-                grid = run('bilateral_fold_blur', part, self.taps)
-                grid = self._spatial_blur(grid)
-            else:       # the spatial blur comes before the colour blur
-                grid = run('bilateral_fold', part)
-                del part
-                grid = self._spatial_blur(grid)
-                grid = run('bilateral_cube_blur', grid, self.taps)
-        if self.ref_round:
-            out = K.bilateral_slice_plain(grid, self.cell, t)
-        else:
-            out = K.bilateral_slice(grid, self.cell, t)
-        return out[..., :cin]
+                out = K.bilateral_slice_plain(grid, self.cell, t)
+            else:
+                out = K.bilateral_slice(grid, self.cell, t)
+            return out[..., :cin]
 
 
 # ---------------------------------------------------------------------------
@@ -365,29 +368,30 @@ class AlignedBilateralGrid:
     def filter(self, x: torch.Tensor) -> torch.Tensor:
         """Approximate K @ x per image; x [B, H, W, C'] with C' <= n_ch
         (fewer channels are zero-padded through the grid and cut off)."""
-        if tuple(x.shape[:3]) != self.bhw:
-            raise ValueError(f'filter input {tuple(x.shape)} does not '
-                             f'match the guide {self.bhw}')
-        cin = x.shape[-1]
-        if cin > self.n_ch:
-            raise ValueError(f'filter input has {cin} channels; grid '
-                             f'built for {self.n_ch}')
-        if self.gc ** 3 * self.n_ch > _CUBE_BLUR_MAX:
-            raise ValueError(
-                f'colour cube of gc^3 * C = {self.gc ** 3 * self.n_ch} '
-                f'elements exceeds {_CUBE_BLUR_MAX}: the reference blurs '
-                'it with band-matrix products, which the port has not '
-                '(`aligned_applicable` admits at most 625 000)')
-        x = x.to(torch.float32)
-        if cin < self.n_ch:
-            x = torch.nn.functional.pad(x, (0, self.n_ch - cin))
-        x = x.contiguous()
-        if self.ref_round:
-            grid = self._blur(K.bilateral_splat_aligned_plain(
-                x, self.cell, self.t, self.gc, ref_round=True))
-            out = K.bilateral_slice_aligned_plain(grid, self.cell, self.t)
-        else:
-            grid = self._blur(K.bilateral_splat_aligned(
-                x, self.cell, self.t, self.gc))
-            out = K.bilateral_slice_aligned(grid, self.cell, self.t)
-        return out[..., :cin]
+        with span('wsss.grid.filter'):
+            if tuple(x.shape[:3]) != self.bhw:
+                raise ValueError(f'filter input {tuple(x.shape)} does not '
+                                 f'match the guide {self.bhw}')
+            cin = x.shape[-1]
+            if cin > self.n_ch:
+                raise ValueError(f'filter input has {cin} channels; grid '
+                                 f'built for {self.n_ch}')
+            if self.gc ** 3 * self.n_ch > _CUBE_BLUR_MAX:
+                raise ValueError(
+                    f'colour cube of gc^3 * C = {self.gc ** 3 * self.n_ch} '
+                    f'elements exceeds {_CUBE_BLUR_MAX}: the reference blurs '
+                    'it with band-matrix products, which the port has not '
+                    '(`aligned_applicable` admits at most 625 000)')
+            x = x.to(torch.float32)
+            if cin < self.n_ch:
+                x = torch.nn.functional.pad(x, (0, self.n_ch - cin))
+            x = x.contiguous()
+            if self.ref_round:
+                grid = self._blur(K.bilateral_splat_aligned_plain(
+                    x, self.cell, self.t, self.gc, ref_round=True))
+                out = K.bilateral_slice_aligned_plain(grid, self.cell, self.t)
+            else:
+                grid = self._blur(K.bilateral_splat_aligned(
+                    x, self.cell, self.t, self.gc))
+                out = K.bilateral_slice_aligned(grid, self.cell, self.t)
+            return out[..., :cin]

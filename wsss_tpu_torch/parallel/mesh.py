@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from wsss_tpu_torch.utils.device import resolve_device
+from wsss_tpu_torch.utils.timing import span
 
 
 class Mesh:
@@ -383,7 +384,11 @@ class _Meeting:
     def meet(self, index: int, value, combine: Callable):
         self.values[index] = value
         self.combine = combine
-        self.barrier.wait()
+        if len(self.devices) == 1:
+            self.barrier.wait()
+        else:
+            with span('wsss.mesh.wait'):
+                self.barrier.wait()
         return self.out[index]
 
 
@@ -451,7 +456,8 @@ def run_shards(mesh: Mesh, fn: Callable, *args,
                else contextlib.nullcontext())
         _local.step = ShardStep(i, devs, generator, meeting)
         try:
-            with ctx, torch.set_grad_enabled(grad):
+            with ctx, torch.set_grad_enabled(grad), \
+                    span('wsss.train.forward'):
                 outs[i] = fn(i, d, *(p[i] for p in per))
         except BaseException as e:      # raised again in the caller
             errs[i] = e
@@ -462,7 +468,9 @@ def run_shards(mesh: Mesh, fn: Callable, *args,
     others = ([_shard_workers(len(devs)).submit(work, i)
                for i in range(1, len(devs))] if len(devs) > 1 else [])
     work(0)
-    concurrent.futures.wait(others)
+    if others:
+        with span('wsss.mesh.wait'):
+            concurrent.futures.wait(others)
     failed = [e for e in errs if e is not None]
     if failed:
         # the shard that failed first, not the ones its abort woke
@@ -561,15 +569,19 @@ def step_over_shards(owner, module: torch.nn.Module, optimizer, mesh,
     (loss on shard 0's device, result).  One backward, the replicas'
     gradients summed onto ``module`` and ``optimizer``'s step there.
     Returns the result."""
-    if mesh is None:
-        mesh = Mesh([next(module.parameters()).device], ('data',))
-    batch = shard_train_batch(mesh, *arrays)
-    reps = replicas_of(owner, module, mesh)
-    outs = run_shards(mesh, lambda i, dev, *xs: forward(reps[i], dev, *xs),
-                      *batch, generator=generator)
-    loss, result = combine(outs, reps.devices, batch)
-    reps.zero_grad()
-    loss.backward()
-    reps.reduce_grads()
-    optimizer.step()
-    return result
+    with span('wsss.train.step'):
+        if mesh is None:
+            mesh = Mesh([next(module.parameters()).device], ('data',))
+        batch = shard_train_batch(mesh, *arrays)
+        reps = replicas_of(owner, module, mesh)
+        outs = run_shards(mesh,
+                          lambda i, dev, *xs: forward(reps[i], dev, *xs),
+                          *batch, generator=generator)
+        loss, result = combine(outs, reps.devices, batch)
+        reps.zero_grad()
+        with span('wsss.train.backward'):
+            loss.backward()
+            reps.reduce_grads()
+        with span('wsss.train.optimizer'):
+            optimizer.step()
+        return result

@@ -36,6 +36,7 @@ from wsss_tpu_torch.parallel.mesh import (Mesh, cross_shard_sum,
                                           step_over_shards)
 from wsss_tpu_torch.train import schedules
 from wsss_tpu_torch.utils.device import resolve_device
+from wsss_tpu_torch.utils.timing import span
 
 MULTIPLIERS = {'kernel': 1.0, 'bias': 2.0,
                'final_kernel': 10.0, 'final_bias': 20.0}
@@ -115,9 +116,11 @@ class SECDSRGTrainer:
         """The method's losses of ``net`` (the trainer's, or a replica of
         it) in train mode on one batch."""
         logits = net.train()(imgs_norm, generator)
-        if self.method == 'SEC':
-            return sec_losses(logits, cues, labels, imgs_raw, self.crf_cfg)
-        return dsrg_losses(logits, cues, labels, imgs_raw, self.crf_cfg)
+        with span('wsss.train.losses'):
+            if self.method == 'SEC':
+                return sec_losses(logits, cues, labels, imgs_raw,
+                                  self.crf_cfg)
+            return dsrg_losses(logits, cues, labels, imgs_raw, self.crf_cfg)
 
     def train_step(self, imgs_norm, imgs_raw, cues, labels,
                    generator: torch.Generator, mesh: Optional[Mesh] = None
@@ -160,7 +163,8 @@ class SECDSRGTrainer:
     def predict_logits(self, imgs_norm: torch.Tensor) -> torch.Tensor:
         """Normalized NHWC images -> NHWC logits on the /8 grid (eval
         mode)."""
-        return self.net.eval()(imgs_norm.to(self.device, torch.float32))
+        with span('wsss.sec.fcn'):
+            return self.net.eval()(imgs_norm.to(self.device, torch.float32))
 
     def state_dict(self) -> dict:
         """The training checkpoint: the network's state dict under
@@ -210,4 +214,5 @@ class SECDSRGPredictor:
     @torch.no_grad()
     def predict_logits(self, imgs_norm: torch.Tensor) -> torch.Tensor:
         """Normalized NHWC images -> NHWC logits on the /8 grid."""
-        return self.net(imgs_norm.to(self.device, torch.float32))
+        with span('wsss.sec.fcn'):
+            return self.net(imgs_norm.to(self.device, torch.float32))

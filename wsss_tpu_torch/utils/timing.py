@@ -1,11 +1,10 @@
-"""Progress metering and profiling hooks of the port (counterpart of
+"""Profiling hooks and the run log of the port (counterpart of
 ``wsss_tpu/utils/timing.py``).
 
-Rebuilds the reference's missing ``misc.pyutils`` (used at
-train_irn.py:97-141): AverageMeter and a Timer with images/sec + ETA; a
-JSONL run log; and a profiler trace, which the port writes with
+``span`` marks a stage of the program in a profiler trace, where the
+JAX package has no spans; ``profile_trace`` writes such a trace with
 ``torch.profiler`` (a Chrome trace) where the JAX package writes a
-``jax.profiler`` one.
+``jax.profiler`` one; ``MetricsLogger`` is the JSONL run log.
 """
 from __future__ import annotations
 
@@ -13,77 +12,64 @@ import contextlib
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
+import torch.autograd.profiler as _profiler
+
+# Every span the program opens, each once per unit of work, never per
+# kernel or CRF iteration:
+SPANS = (
+    'wsss.hsn.segment_batch',   # a segment_batch call (HSN and ADP HSN)
+    'wsss.sec.predict_image',   # one image of SEC / DSRG prediction
+    'wsss.train.step',          # a training step (step_over_shards)
+    'wsss.cues.batch',          # a batch of a cue generator's run
+    'wsss.io.to_device',        # a host batch copied to the device
+    'wsss.io.to_host',          # a batch's cues copied back to the host
+    'wsss.cam',                 # a classifier's forward and Grad-CAM
+    'wsss.sec.fcn',             # the FCN's forward in predict_logits
+    'wsss.train.forward',       # a shard's forward and losses
+    'wsss.train.losses',        # the losses after the network, CRF layer in
+    'wsss.train.backward',      # the backward and the gradients' sum
+    'wsss.train.optimizer',     # the optimizer's step
+    'wsss.mesh.wait',           # a thread waiting on the other shards
+    'wsss.crf.mean_field',      # a mean_field call
+    'wsss.crf.build',           # its unaries, grids and normalizers
+    'wsss.crf.loop',            # its iterations
+    'wsss.grid.filter',         # a bilateral structure's filter
+)
+
+_OFF = contextlib.nullcontext()
 
 
-class AverageMeter:
-    """misc.pyutils.AverageMeter (train_irn.py:97,122,135)."""
-
-    def __init__(self):
-        self._sums: Dict[str, float] = {}
-        self._counts: Dict[str, int] = {}
-
-    def add(self, values: Dict[str, float]):
-        for k, v in values.items():
-            self._sums[k] = self._sums.get(k, 0.0) + float(v)
-            self._counts[k] = self._counts.get(k, 0) + 1
-
-    def get(self, key: str) -> float:
-        return self._sums[key] / max(self._counts[key], 1)
-
-    def pop(self, key: str) -> float:
-        v = self.get(key)
-        self._sums.pop(key, None)
-        self._counts.pop(key, None)
-        return v
-
-
-class Timer:
-    """misc.pyutils.Timer (train_irn.py:99,132-141): stage-elapsed time,
-    progress fraction, ETA string."""
-
-    def __init__(self):
-        self.start = time.time()
-        self.stage_start = self.start
-        self.progress = 0.0
-
-    def update_progress(self, progress: float):
-        self.progress = max(progress, 1e-9)
-
-    def get_stage_elapsed(self) -> float:
-        return time.time() - self.stage_start
-
-    def reset_stage(self):
-        self.stage_start = time.time()
-
-    def str_estimated_complete(self) -> str:
-        elapsed = time.time() - self.start
-        remain = elapsed * (1.0 - self.progress) / self.progress
-        return time.strftime('%H:%M:%S', time.gmtime(max(remain, 0)))
-
-
-def sync(x) -> float:
-    """Wait for the device work behind ``x`` and return its first element
-    as a float (a host fetch)."""
-    return float(torch.as_tensor(x).reshape(-1)[0])
+def span(name: str):
+    """A profiler range called ``name`` (one of ``SPANS``) around a block
+    while a profiler runs, in any thread of the process; else a shared
+    context that does nothing, at the cost of one flag read.  The flag is
+    torch's Python one: ``torch.autograd._profiler_enabled()`` reads False
+    in a thread that existed before the profiler started."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
 def profile_trace(log_dir: Optional[str]):
     """torch.profiler trace of the block (CPU, and CUDA where a card is
-    present), written to ``log_dir/trace.json`` as a Chrome trace; a no-op
-    when log_dir is falsy."""
+    present) over every thread, so a mesh's shard threads show their
+    spans and operations, written to ``log_dir/trace.json`` as a Chrome
+    trace; a no-op when log_dir is falsy."""
     if not log_dir:
         yield
         return
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(log_dir, exist_ok=True)
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
+    every_thread = _ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=acts, experimental_config=every_thread) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, 'trace.json'))
 
