@@ -205,6 +205,7 @@ def test_spans_nest_as_the_stages(entry, tmp_path):
         assert len(_named(spans, top)) == 1
         _each_inside(spans, 'wsss.io.to_device', top, 1)
         _each_inside(spans, 'wsss.sec.fcn', top, 1)
+        _each_inside(spans, 'wsss.net.atrous', 'wsss.sec.fcn', 1)
         _crf_nested(spans, top, config.SEC_TEST['VOC2012'].iterations)
     elif entry.startswith('train'):
         top = 'wsss.train.step'
@@ -215,6 +216,8 @@ def test_spans_nest_as_the_stages(entry, tmp_path):
         _each_inside(spans, 'wsss.train.forward', top, shards,
                      any_thread=True)
         _each_inside(spans, 'wsss.train.losses', 'wsss.train.forward',
+                     shards)
+        _each_inside(spans, 'wsss.net.atrous', 'wsss.train.forward',
                      shards)
         _crf_nested(spans, 'wsss.train.losses',
                     config.SEC_TRAIN_DEFAULT.iterations, shards)

@@ -14,10 +14,11 @@ the max; the average pool pads zeros and divides by the full window of 9
 at the border too; a dilated 3x3 convolution pads by its dilation.
 
 Public layout is the JAX package's: NHWC in, NHWC float32 logits out;
-the convolutions run on the NCHW view of the same memory.  In train mode
-(``net.train()``) drop6 and drop7 draw their masks from the
-``generator`` the forward is given (``backbones.Dropout``); in eval mode
-they are the identity.
+the convolutions run on the NCHW view of the same memory; fc6's forward
+runs as explicit float32 products (``atrous_conv``), its backward as the
+convolution's own.  In train mode (``net.train()``) drop6 and drop7 draw
+their masks from the ``generator`` the forward is given
+(``backbones.Dropout``); in eval mode they are the identity.
 """
 from __future__ import annotations
 
@@ -28,8 +29,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from wsss_tpu_torch.models.backbones import Dropout
+from wsss_tpu_torch.utils.timing import span
 
 MIN_PROB = 1e-4  # SEC.py:40
+
+# calls of ``atrous_conv``: one a LargeFOV head's forward
+ATROUS_CALLS = 0
 
 # (n_convs, width, pool_stride, dilation) per trunk stage
 TRUNK_CFG = ((2, 64, 2, 1), (2, 128, 2, 1), (3, 256, 2, 1),
@@ -75,6 +80,56 @@ class DeepLabTrunk(nn.Module):
         return F.avg_pool2d(x, 3, 1, 1, count_include_pad=True)
 
 
+class _AtrousConv(torch.autograd.Function):
+    """A 3x3 convolution at dilation r, padding r, stride 1, on NCHW ``x``.
+
+    Forward: the NHWC map zero-padded by r, its nine taps a pixel laid
+    out in the kernel's own (c, kh, kw) order as a column matrix
+    [H*W, 9*C] an image (one strided copy), times the kernel's
+    [out, 9*C] view, plus the bias in the product's epilogue: one float32
+    ``addmm`` an image, so an image's output is the same bits alone or in
+    any batch.  Summed in that order, from zero, then the bias added, the
+    product gives cuDNN's float32 convolution bit for bit on an H100 (its
+    direct kernel at batch 8 and its implicit GEMM at batch 1).  The
+    columns are transient.  Backward: ``aten::convolution_backward``, the
+    call autograd makes for ``F.conv2d``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, rate):
+        ctx.save_for_backward(x, weight)
+        ctx.rate = rate
+        b, c, h, w = x.shape
+        xp = F.pad(x.permute(0, 2, 3, 1), (0, 0, rate, rate, rate, rate))
+        taps = (xp.unfold(1, 2 * rate + 1, 1)[..., ::rate]
+                .unfold(2, 2 * rate + 1, 1)[..., ::rate])  # [b,h,w,c,3,3]
+        cols = taps.reshape(b, h * w, 9 * c)
+        kernel = weight.reshape(weight.shape[0], 9 * c)
+        out = x.new_empty(b, h * w, weight.shape[0])
+        for n in range(b):
+            torch.addmm(bias, cols[n], kernel.t(), out=out[n])
+        return out.view(b, h, w, -1).permute(0, 3, 1, 2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        r = ctx.rate
+        gx, gw, gb = torch.ops.aten.convolution_backward(
+            grad, x, weight, [weight.shape[0]], [1, 1], [r, r], [r, r],
+            False, [0, 0], 1, list(ctx.needs_input_grad[:3]))
+        return gx, gw, gb, None
+
+
+def atrous_conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """``conv(x)`` for a 3x3 ``nn.Conv2d`` with padding = dilation, as
+    ``_AtrousConv``'s explicit products (for fc6 at batch 8 cuDNN picks a
+    direct kernel ~48x slower on an H100)."""
+    global ATROUS_CALLS
+    ATROUS_CALLS += 1
+    with span('wsss.net.atrous'):
+        return _AtrousConv.apply(x, conv.weight, conv.bias,
+                                 conv.dilation[0])
+
+
 class LargeFOVHead(nn.Module):
     """fc6 (3x3 atrous, 1024) -> fc7 (1x1, 1024) -> fc8 (1x1, C)."""
 
@@ -89,7 +144,7 @@ class LargeFOVHead(nn.Module):
         self.drop7 = Dropout(0.5)
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        x = self.drop6(torch.relu(self.fc6(x)), generator)
+        x = self.drop6(torch.relu(atrous_conv(x, self.fc6)), generator)
         x = self.drop7(torch.relu(self.fc7(x)), generator)
         return self.fc8(x)
 

@@ -28,6 +28,7 @@ SPANS = (
     'wsss.io.to_host',          # a batch's cues copied back to the host
     'wsss.cam',                 # a classifier's forward and Grad-CAM
     'wsss.sec.fcn',             # the FCN's forward in predict_logits
+    'wsss.net.atrous',          # a LargeFOV head's fc6 as explicit products
     'wsss.train.forward',       # a shard's forward and losses
     'wsss.train.losses',        # the losses after the network, CRF layer in
     'wsss.train.backward',      # the backward and the gradients' sum
