@@ -137,8 +137,8 @@ def run(bench: dict, workload: str, seed: int, seconds: float, traced: bool,
     metrics = {}
     if not traced:
         rate, tail = done['images'] / window_s, 1e3 * p95(lat)
-        values = {'img_per_s': rate, 'predict_img_per_s': rate,
-                  'latency_p95_ms': tail, 'setup_s': setup_s}
+        values = {'img_per_s': rate, 'latency_p95_ms': tail,
+                  'setup_s': setup_s}
         for m in spec.end_to_end_of(bench, workload):
             if m['name'] in values:
                 metrics[m['name']] = {'value': values[m['name']],

@@ -1,10 +1,5 @@
 """SEC on DeepLab-LargeFOV from ``sec_voc_largefov``'s file, plain.
 
-Prediction (one image at its native size): resize to the network's
-input, mean-subtract, the FCN's logits, softmax of their resize to the
-input size, resized to the native size and clamped at 1e-8 and
-renormalized, then the test CRF on the native image.
-
 Training step (Kolesnikov & Lampert, arXiv:1603.06098): softmax with a
 ``min_prob`` floor, renormalized; the seed loss (cue-masked
 cross-entropy over the cue count); the expand loss (global weighted-rank
@@ -27,23 +22,6 @@ from benchmark.reference import crf as crf_ref
 from benchmark.reference import nets
 from benchmark.reference.hsn import normalize
 from benchmark.reference.numerics import Numerics
-
-
-@torch.no_grad()
-def predict(num: Numerics, cfg: dict, layers: Sequence, native):
-    """native [H, W, 3] float 0..255 -> (logits [1, g, g, C], Q
-    [1, H, W, C])."""
-    s = cfg['input_size']
-    hw = tuple(native.shape[:2])
-    net_in = crf_ref.resize_bilinear(native, (s, s))
-    logits = nets.deeplab(num, cfg, layers,
-                          normalize(cfg['norm'], net_in[None]))
-    p = torch.softmax(crf_ref.resize_bilinear(logits, (s, s)), dim=-1)
-    p = torch.clamp(crf_ref.resize_bilinear(p, hw), 1e-8, 1.0)
-    p = p / p.sum(-1, keepdim=True)
-    q = crf_ref.mean_field(num, p, native[None], cfg['crf_test'],
-                           cfg['crf_grid'], cfg['dense_crf_max_pixels'])
-    return logits, q
 
 
 def _decay(q: float, n: int, device) -> torch.Tensor:

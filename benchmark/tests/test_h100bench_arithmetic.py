@@ -6,7 +6,7 @@ import types
 
 import pytest
 
-from benchmark.harness import checks, peaks, spec, trace
+from benchmark.harness import checks, peaks, runner, spec, trace
 
 
 @pytest.mark.parametrize('spans,want', [
@@ -85,11 +85,10 @@ def test_readers_on_the_hand_trace():
     assert spec.metric('crf.device_ms').read(v, run) == pytest.approx(0.012)
     # no grid.filter range in the trace: the reader reads nothing
     assert spec.metric('grid.filter_roofline').read(v, run) is None
-    tail = spec.metric('step.predict_latency_p95_ms').read
-    assert tail(v, run) is None
-    # inclusive quantiles: 0.95 of the way from 10 ms to 200 ms
-    lat = {**run, 'latency_s': [0.01 * k for k in range(1, 21)]}
-    assert tail(v, lat) == pytest.approx(190.5)
+    # latency_p95_ms: inclusive quantiles, 0.95 of the way from 10 ms to
+    # 200 ms
+    lat = [0.01 * k for k in range(1, 21)]
+    assert 1e3 * runner.p95(lat) == pytest.approx(190.5)
 
 
 def test_grid_filter_roofline_reader():

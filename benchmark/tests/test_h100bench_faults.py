@@ -70,12 +70,6 @@ def test_cue_faults(fault, monkeypatch, torch_threads):
     assert not run('cues_voc_b8')['correct']
 
 
-def test_sec_predict_answer_altered(monkeypatch, torch_threads):
-    from wsss_tpu_torch.cli import sec_dsrg
-    monkeypatch.setattr(sec_dsrg, 'mean_field', altered(sec_dsrg.mean_field))
-    assert not run('sec_predict_voc')['correct']
-
-
 def test_sec_train_state_unchanged(monkeypatch, torch_threads):
     from wsss_tpu_torch.train import schedules
     monkeypatch.setattr(schedules.ScheduledSGD, 'step', lambda self: True)

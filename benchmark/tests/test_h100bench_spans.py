@@ -14,8 +14,6 @@ from test_h100bench_arithmetic import ev
 BENCH = spec.load_benchmark()
 READERS = {'crf.loop_idle_ms': 'hsn_voc_b8',
            'crf.build_idle_ms': 'hsn_voc_b8',
-           'crf.predict_loop_idle_ms': 'sec_predict_voc',
-           'crf.predict_build_idle_ms': 'sec_predict_voc',
            'train.step_idle_ms': 'sec_train_voc'}
 
 
@@ -58,8 +56,6 @@ def test_overlap(xs, ys, want):
 @pytest.mark.parametrize('name,want_ms', [
     ('crf.loop_idle_ms', (25 + 5) / 2 / 1e3),
     ('crf.build_idle_ms', (10 + 8) / 2 / 1e3),
-    ('crf.predict_loop_idle_ms', (25 + 5) / 2 / 1e3),
-    ('crf.predict_build_idle_ms', (10 + 8) / 2 / 1e3),
     ('train.step_idle_ms', (10 + 35) / 2 / 1e3),
 ])
 def test_readers_on_the_span_trace(name, want_ms):
@@ -145,7 +141,7 @@ def test_traced_cells_report_the_span_metrics(cell, torch_threads):
 
 @pytest.mark.cuda
 def test_crf_loop_spans_share_the_device_clock():
-    """A traced run of ``sec_predict_voc`` at its own size: placed on the
+    """A traced run of ``hsn_voc_b8`` at its own size: placed on the
     device's clock by the offset of the operations launched in the
     ``NEAR_US`` before it opened, every ``wsss.crf.loop`` span finds each
     operation launched inside it starting after its launch, to within
@@ -153,7 +149,7 @@ def test_crf_loop_spans_share_the_device_clock():
     operations before it)."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA card')
-    cell = spec.cell(BENCH, 'sec_predict_voc')
+    cell = spec.cell(BENCH, 'hsn_voc_b8')
     cfg = spec.config(BENCH, cell['config'])
     traffic = spec.traffic(cell['traffic'])
     dev = torch.device('cuda', 0)
