@@ -16,7 +16,7 @@ from wsss_tpu_torch.data import registry
 from wsss_tpu_torch.methods import hsn
 from wsss_tpu_torch.methods.gradcam_cues import (VOCDeepGlobeCueGenerator,
                                                  _ClassifierHandle)
-from wsss_tpu_torch.ops.crf import config
+from wsss_tpu_torch.ops.crf import config, meanfield
 from wsss_tpu_torch.parallel.mesh import Mesh
 from wsss_tpu_torch.train.sec_dsrg import SECDSRGPredictor, SECDSRGTrainer
 from wsss_tpu_torch.utils import timing
@@ -25,6 +25,11 @@ CPU = torch.device('cpu')
 VOC = registry.get('VOC2012')
 HSN_SIZE = 104          # the smallest size whose CRF takes the grid
 HSN_ITERS = 2
+# ADP's CRFs on the direct window at a size the suite affords: bi_sxy 2
+# (radius 6, 113 offsets) where ADP's 10 has 2821, which in the suite's
+# workers takes minutes; the route and the spans are the same
+ADP_CRFS = (config.CRFConfig(1, 20, 2, 40, 50, 5),
+            config.CRFConfig(3, 40, 2, 4, 25, 5))
 
 
 def _images(seed, shape):
@@ -40,6 +45,15 @@ def _hsn():
     seg = hsn.HSNSegmenter(VOC, fg, bg, cfg=cfg, device='cpu')
     imgs = _images(0, (2, HSN_SIZE, HSN_SIZE, 3))
     return lambda: [seg.segment_batch(imgs)]
+
+
+def _adp():
+    handle = _ClassifierHandle.random('X1.7', 51, HSN_SIZE, seed=2,
+                                      device='cpu')
+    seg = hsn.ADPHSNSegmenter(handle, 'X1.7', *ADP_CRFS, device='cpu')
+    imgs = _images(4, (1, HSN_SIZE, HSN_SIZE, 3))
+    imgs[:, :, :20] = 250          # glass, for the synthetic background
+    return lambda: list(seg.segment_batch(imgs))
 
 
 def _predict():
@@ -88,8 +102,8 @@ def _cues():
 
 
 # each entry: a function that makes a fresh zero-argument call
-ENTRIES = {'hsn': _hsn, 'predict': _predict, 'train': _train(1),
-           'train_mesh': _train(2), 'cues': _cues}
+ENTRIES = {'hsn': _hsn, 'adp': _adp, 'predict': _predict,
+           'train': _train(1), 'train_mesh': _train(2), 'cues': _cues}
 
 
 def _same(a, b):
@@ -131,19 +145,20 @@ def _each_inside(spans, inner, outer, count=None, any_thread=False):
         assert len(ins) == count, (inner, len(ins))
 
 
-def _crf_nested(spans, entry, iterations, calls=1):
+def _crf_nested(spans, entry, iterations, calls=1,
+                filter_span='wsss.grid.filter'):
     """The CRF's spans as ``span``'s table nests them: build and loop
     inside each mean_field call, that inside the entry's span, and one
-    filter for the normalizer and one an iteration."""
+    filter (``filter_span``) for the normalizer and one an iteration."""
     _each_inside(spans, 'wsss.crf.mean_field', entry, calls)
     for part in ('wsss.crf.build', 'wsss.crf.loop'):
         _each_inside(spans, part, 'wsss.crf.mean_field', calls)
-    _each_inside(spans, 'wsss.grid.filter', 'wsss.crf.mean_field',
+    _each_inside(spans, filter_span, 'wsss.crf.mean_field',
                  (iterations + 1) * calls)
     for part, each in (('wsss.crf.build', 1),
                        ('wsss.crf.loop', iterations)):
         parts = _named(spans, part)
-        inner = [f for f in _named(spans, 'wsss.grid.filter')
+        inner = [f for f in _named(spans, filter_span)
                  if any(_inside(f, p) for p in parts)]
         assert len(inner) == each * calls, part
 
@@ -200,6 +215,15 @@ def test_spans_nest_as_the_stages(entry, tmp_path):
         _each_inside(spans, 'wsss.io.to_device', top, 1)
         _each_inside(spans, 'wsss.cam', top, 2)
         _crf_nested(spans, top, HSN_ITERS)
+    elif entry == 'adp':
+        top = 'wsss.hsn.segment_batch'
+        assert len(_named(spans, top)) == 1
+        _each_inside(spans, 'wsss.io.to_device', top, 1)
+        _each_inside(spans, 'wsss.cam', top, 1)
+        iters = {c.iterations for c in ADP_CRFS}.pop()
+        _crf_nested(spans, top, iters, calls=2,
+                    filter_span='wsss.window.filter')
+        assert not _named(spans, 'wsss.grid.filter')
     elif entry == 'predict':
         top = 'wsss.sec.predict_image'
         assert len(_named(spans, top)) == 1
@@ -231,3 +255,24 @@ def test_spans_nest_as_the_stages(entry, tmp_path):
         _each_inside(spans, 'wsss.io.to_device', top, 2)
         _each_inside(spans, 'wsss.cam', top, 2)
         _each_inside(spans, 'wsss.io.to_host', top, 1)
+
+
+@pytest.mark.parametrize('profiled', [False, True])
+def test_window_offsets_count_every_filter(profiled, tmp_path):
+    """``WINDOW_OFFSETS`` grows by the window's offsets at each filter:
+    K (counted here by brute force) times the normalizer and the
+    iterations of both CRFs, with a profiler or without."""
+    call = _adp()
+    before = meanfield.WINDOW_OFFSETS
+    if profiled:
+        _spans(tmp_path, call)
+    else:
+        call()
+    want = 0
+    for c in ADP_CRFS:
+        r = 3 * c.bi_sxy
+        k = sum(1 for dy in range(-r, r + 1) for dx in range(-r, r + 1)
+                if dy * dy + dx * dx <= r * r)
+        want += k * (c.iterations + 1)
+    assert want == 113 * 12
+    assert meanfield.WINDOW_OFFSETS - before == want

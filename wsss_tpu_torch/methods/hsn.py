@@ -194,10 +194,11 @@ class ADPHSNSegmenter:
         the CRFs' unaries."""
         h = self.handle
         size = h.input_size
-        scores, feats = h.model(self._norm(imgs))
-        cams = gc_ops.grad_cam_confidence(
-            feats, h.weights, scores >= h.thresholds[None], scores,
-            upsample_hw=(size, size))
+        with span('wsss.cam'):
+            scores, feats = h.model(self._norm(imgs))
+            cams = gc_ops.grad_cam_confidence(
+                feats, h.weights, scores >= h.thresholds[None], scores,
+                upsample_hw=(size, size))
         cams31 = cams[..., self._all31]
         morph = cams31.new_zeros(cams31.shape[:3]
                                  + (self.morph_spec.n_seg_classes,))

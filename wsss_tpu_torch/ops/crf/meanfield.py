@@ -89,6 +89,10 @@ _GRID_BLUR_SIGMA = {
 }
 _GRID_BLUR_RADIUS = 2
 
+# offsets applied by ``DirectBilateral.filter``: its window's offsets at
+# each call
+WINDOW_OFFSETS = 0
+
 
 def _blur_kernel1d(sigma: float, radius: int) -> np.ndarray:
     x = np.arange(-radius, radius + 1, dtype=np.float64)
@@ -395,7 +399,9 @@ class DirectBilateral:
         self.srgb = srgb
 
     def filter(self, x: torch.Tensor) -> torch.Tensor:
-        with span('wsss.grid.filter'):
+        global WINDOW_OFFSETS
+        WINDOW_OFFSETS += len(self.offs)
+        with span('wsss.window.filter'):
             if self._squeeze:
                 return self._filter(x[None])[0]
             return self._filter(x)

@@ -37,7 +37,8 @@ SPANS = (
     'wsss.crf.mean_field',      # a mean_field call
     'wsss.crf.build',           # its unaries, grids and normalizers
     'wsss.crf.loop',            # its iterations
-    'wsss.grid.filter',         # a bilateral structure's filter
+    'wsss.grid.filter',         # a grid's or the dense kernel's filter
+    'wsss.window.filter',  # a direct window's filter, whatever implements it
 )
 
 _OFF = contextlib.nullcontext()
