@@ -75,10 +75,13 @@ Phases, in order; any failure exits non-zero and prints no result:
                through the native route where its library builds;
   8. adp_hsn — ADPHSNSegmenter.segment_batch, full-width X1.7 (51-way),
                random weights, batch 8 at 224^2, the default ADP CRFs
-               (direct window): img/s, the CRF's share, the window
-               against weight maps computed offset by offset, and against
-               a cache of them in time, at ADP's shape and at the VOC M7
-               config's;
+               (direct window: one direct_window launch a filter, 12 a
+               batch): img/s, the CRF's share; the window against its
+               plain version and weight maps computed offset by offset,
+               in time against its bound, the plain version and a cache
+               of the maps, and in the memory a filter adds, at every
+               shape the path gives it (each CRF's C 1 and C classes,
+               batch 8) and at the VOC M7 config's;
   9. aligned — AlignedBilateralGrid.filter at batch 8, 321^2, C 21:
                launch counts, error against the plain versions;
  10. cli     — the command lines in-process, as a user runs them, in a
@@ -89,7 +92,7 @@ Phases, in order; any failure exits non-zero and prints no result:
                other; csv and xlsx agree; mIoU and, with PIL, the labels of
                its PNGs against segment_batch on the same images; img/s
                beside segment_batch's), on ADP-morph X1.7 with learned CRF
-               .npy files (no hand kernel), cli.sec_dsrg.main --task
+               .npy files (direct_window only), cli.sec_dsrg.main --task
                predict restoring a port checkpoint (the v2 kernels only;
                img/s and mIoU beside predict_image's on the same images),
                then cli.extract_eval.main, which must list the four IoU
@@ -1702,15 +1705,53 @@ def phase_irn_label(torch):
     return {'irn_label': dict(launches, flat_color_blur_split=n_split)}
 
 
+def window_guides(torch, b, h, w, gen):
+    """Guides [B, H, W, 3] of flat-coloured 4-px blocks plus noise 3:
+    neighbours close in colour, so ADP's srgb 4 weights are not all ~0."""
+    blocks = torch.randint(40, 250, (b, -(-h // 4), -(-w // 4), 3),
+                           generator=gen, device='cuda').float()
+    img = blocks.repeat_interleave(4, 1).repeat_interleave(4, 2)[:, :h, :w]
+    img = img + 3 * torch.randn(img.shape, generator=gen, device='cuda')
+    return img.clamp(0, 255).contiguous()
+
+
+def added_mib(torch, fn):
+    """Device memory fn() adds at its peak beyond what is allocated."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+# FLOPs of one colour weight: 3 differences, 3 squares and sums, the
+# scale, exp, the spatial weight
+COLOUR_WEIGHT_FLOPS = 11
+
+
 def hold_direct_window(torch, imgs, cfg, x, label):
-    """DirectBilateral.filter against the same window summed offset by
-    offset from weight maps computed one at a time (the reference's
+    """DirectBilateral.filter (the direct_window kernel, one launch)
+    against its plain version and against the same window summed offset
+    by offset from weight maps computed one at a time (the reference's
     cached form: the maps are kept, every filter shifts x once per
-    offset), in value and in time.  Returns the number of offsets."""
+    offset), each within 1e-4 of the largest magnitude; in time against
+    its bound, the plain version and the cached form, and in the device
+    memory a filter adds.  The bound counts 2 C FLOPs an offset and
+    pixel and half a colour weight's 11 (w(p, p+o) = w(p+o, p): the
+    least a filter that computes its weights anew has to do) at the
+    float32 peak, or the guide and x read once and the sum written once
+    at HBM's rate, whichever is larger.  Returns the number of offsets
+    and the kernel's result (its error from the plain version, times,
+    bound, memory)."""
+    from wsss_tpu_torch.kernels import bilateral as K
     from wsss_tpu_torch.ops.crf import meanfield as mf
     win = mf.DirectBilateral(imgs, cfg.bi_sxy, cfg.bi_srgb)
+    before = K.LAUNCHES['direct_window']
     got = win.filter(x)
-    h, w = imgs.shape[1:3]
+    check(K.LAUNCHES['direct_window'] == before + 1,
+          f'direct window {label}: not one direct_window launch')
+    b, h, w, c = x.shape
     ones = torch.ones((h, w, 1), device=imgs.device)
     inv = 0.5 / (cfg.bi_srgb * cfg.bi_srgb)
 
@@ -1722,6 +1763,7 @@ def hold_direct_window(torch, imgs, cfg, x, label):
                          for (dy, dx), ws in zip(win.offs, win.wspace)])
     torch.cuda.synchronize()
     build_ms = 1e3 * (time.perf_counter() - t0)
+    cache_mib = cache.numel() * 4 / 2 ** 20
 
     def cached_filter():
         out = torch.zeros_like(x)
@@ -1730,21 +1772,44 @@ def hold_direct_window(torch, imgs, cfg, x, label):
         return out
     ref = cached_filter()
     rel = float((got - ref).abs().max() / ref.abs().max())
-    ms = cuda_ms(torch, lambda: win.filter(x), reps=3, warmup=1)
     ms_c = cuda_ms(torch, cached_filter, reps=3, warmup=1)
+    del cache
+    with K.plain_versions():
+        plain = win.filter(x)
+        ms_p = cuda_ms(torch, lambda: win.filter(x), reps=3, warmup=1)
+        peak_p = added_mib(torch, lambda: win.filter(x))
+    rel_plain = float((got - plain).abs().max() / plain.abs().max())
+    ms = cuda_ms(torch, lambda: win.filter(x), reps=10, warmup=2)
+    peak = added_mib(torch, lambda: win.filter(x))
+    pairs = len(win.offs) * b * h * w
+    bound, by = bound_ms(4 * b * h * w * (3 + 2 * c),
+                         (2 * c + COLOUR_WEIGHT_FLOPS / 2) * pairs)
+    plan = K.direct_window_plan(b, h, w, c, win._table.rx)
     print(f'[adp_hsn] DirectBilateral {label}, sxy {cfg.bi_sxy:.4g} srgb '
-          f'{cfg.bi_srgb:.4g}, {len(win.offs)} offsets: max rel diff from '
-          f'the offset-by-offset sum {rel:.3e} (tolerance 1e-4); '
-          f'{ms:.2f} ms a filter against {ms_c:.2f} ms from cached weight '
-          f'maps ({cache.numel() * 4 / 2 ** 20:.0f} MiB, built in '
-          f'{build_ms:.1f} ms)')
-    check(torch.isfinite(got).all() and rel <= 1e-4,
-          f'direct window {label} disagrees with the offset-by-offset sum')
-    return len(win.offs)
+          f'{cfg.bi_srgb:.4g}, {len(win.offs)} offsets, plan g {plan.g} '
+          f'p {plan.p}: max rel diff from the plain version '
+          f'{rel_plain:.3e}, from the offset-by-offset sum {rel:.3e} '
+          f'(tolerance 1e-4); direct_window {ms:.3f} ms a filter (bound '
+          f'{bound:.3f} ms by {by}, {bound / ms:.3f} of it) against '
+          f'{ms_p:.2f} ms for the plain version and {ms_c:.2f} ms from '
+          f'cached weight maps ({cache_mib:.0f} MiB, built in '
+          f'{build_ms:.1f} ms); a filter adds {peak:.1f} MiB at its peak '
+          f'(plain {peak_p:.1f})')
+    check(torch.isfinite(got).all() and rel <= 1e-4 and rel_plain <= 1e-4,
+          f'direct window {label} disagrees with its plain version or the '
+          'offset-by-offset sum')
+    return len(win.offs), dict(
+        max_abs_err=float((got - plain).abs().max()), ms=ms, plain_ms=ms_p,
+        library_ms=None, bound_ms=bound, bound_by=by,
+        cached_maps_ms=ms_c, peak_mib=peak, plain_peak_mib=peak_p,
+        plan=dict(g=plan.g, p=plan.p, grid=list(plan.grid)))
 
 
-def phase_adp_hsn(torch):
-    """ADPHSNSegmenter at full width on the direct window."""
+def phase_adp_hsn(torch, results):
+    """ADPHSNSegmenter at full width on the direct window; the window's
+    kernel held at every shape the path gives it and at the VOC M7
+    config's (results['direct_window'], its row keyed to the morph CRF's
+    iterations, C 29)."""
     from wsss_tpu_torch.kernels import bilateral as K
     from wsss_tpu_torch.methods.gradcam_cues import _ClassifierHandle
     from wsss_tpu_torch.methods.hsn import ADPHSNSegmenter
@@ -1779,8 +1844,10 @@ def phase_adp_hsn(torch):
           f'{cam_ms:.2f} ms, so the two CRFs take '
           f'{1 - cam_ms / (1e3 * dt):.3f} of the batch; launches '
           f'{launches}')
-    check_launches(launches, (), 'the adp_hsn path (no hand kernel: the '
-                   'direct window is plain PyTorch, as in the reference)')
+    check_launches(launches, ('direct_window',), 'the adp_hsn path')
+    check(launches['direct_window'] == 2 * (seg.cfg_morph.iterations + 1),
+          f'adp_hsn: {launches["direct_window"]} direct_window launches, '
+          'expected one a filter')
     for lab, spec in ((lab_m, seg.morph_spec), (lab_f, seg.func_spec)):
         check(lab.shape == (BATCH, size, size) and lab.dtype == torch.int32
               and int(lab.min()) >= 0
@@ -1788,17 +1855,28 @@ def phase_adp_hsn(torch):
               f'{spec.name} labels out of shape or range')
         print(f'[adp_hsn] {spec.name}: '
               f'{int(lab.unique().numel())} labels present')
-    x = torch.rand((2, size, size, 5), generator=gen, device='cuda')
-    n_off = hold_direct_window(torch, imgs[:2], seg.cfg_func, x,
-                               'ADP func, B 2 C 5')
-    check(n_off > 2800, f'ADP window has {n_off} offsets')
+    # every shape the path gives the kernel: each CRF's normalizer (C 1)
+    # and its iterations (C its classes), batch 8 at 224^2, on its config
+    guides = window_guides(torch, BATCH, size, size, gen)
+    cases = {}
+    for name, spec, cfg in (('morph', seg.morph_spec, seg.cfg_morph),
+                            ('func', seg.func_spec, seg.cfg_func)):
+        for c in (1, spec.n_seg_classes):
+            x = torch.rand((BATCH, size, size, c), generator=gen,
+                           device='cuda')
+            n_off, cases[f'adp_{name}_b{BATCH}_c{c}'] = hold_direct_window(
+                torch, guides, cfg, x, f'ADP {name}, B {BATCH} C {c}')
+            check(n_off > 2800, f'ADP window has {n_off} offsets')
+    morph = f'adp_morph_b{BATCH}_c{seg.morph_spec.n_seg_classes}'
     # the VOC M7 HistoSegNet config: a small window (81 offsets)
     from wsss_tpu_torch.ops.crf import config as crf_config
     cfg = crf_config.hsn_config('VOC2012', 'M7')
     check(mf.bilateral_structure((size, size), cfg.bi_sxy, cfg.bi_srgb)
           == 'direct', f'{cfg} no longer routes to the direct window')
     x = torch.rand((BATCH, size, size, 21), generator=gen, device='cuda')
-    hold_direct_window(torch, imgs, cfg, x, 'VOC M7, B 8 C 21')
+    _, cases[f'voc_m7_b{BATCH}_c21'] = hold_direct_window(
+        torch, guides, cfg, x, f'VOC M7, B {BATCH} C 21')
+    results['direct_window'] = dict(cases[morph], shape=morph, cases=cases)
     return {'adp_hsn': launches}
 
 
@@ -2037,8 +2115,8 @@ def phase_cli(torch):
         res, _, dt, launches = run_cli(
             torch, hsn_cli.main, ['--dataset', 'ADP-morph', '--model', 'X1.7',
                                   '--synthetic_n', '8'] + roots + pcc)
-        check_launches(launches, (), 'cli_adp (the direct window: no hand '
-                       'kernel, as in the reference)')
+        check_launches(launches, ('direct_window',), 'cli_adp (the '
+                       'direct window)')
         check(sorted(res) == ['miou_func', 'miou_morph']
               and all(np.isfinite(v) for v in res.values()),
               f'cli_adp result {res}')
@@ -3971,7 +4049,7 @@ def main():
     paths.update(phase_sec(torch))
     paths.update(phase_wide(torch))
     paths.update(phase_irn_label(torch))
-    paths.update(phase_adp_hsn(torch))
+    paths.update(phase_adp_hsn(torch, results))
     paths.update(phase_aligned(torch))
     print(f'[time] aligned done at {time.perf_counter() - t_start:.0f} s')
     paths.update(phase_cli(torch))
@@ -4013,7 +4091,9 @@ def main():
         'bilateral_slice_aligned': at + '1203 (call :1411)',
         'flat_color_blur': 'wsss_tpu/ops/crf/pallas_blur.py:47 (call :68)',
         'flat_color_blur_split':
-            'wsss_tpu/ops/crf/pallas_blur.py:84 (call :110)'}
+            'wsss_tpu/ops/crf/pallas_blur.py:84 (call :110)',
+        'direct_window': 'none (wsss_tpu/ops/crf/meanfield.py:'
+                         'DirectBilateral is plain jnp)'}
     # one kernel serves both forms of the flat colour blur
     source_of = {name: sources[name.replace('_split', '')]
                  for name in replaces}

@@ -56,7 +56,7 @@ def test_kernels_are_not_built_at_import():
         'bilateral_splat', 'bilateral_color_blur', 'bilateral_slice',
         'bilateral_splat_tiles', 'bilateral_fold', 'bilateral_fold_blur',
         'bilateral_cube_blur', 'bilateral_splat_aligned',
-        'bilateral_slice_aligned', 'flat_color_blur'}
+        'bilateral_slice_aligned', 'flat_color_blur', 'direct_window'}
     assert sorted(build.sources()) == sorted(bilateral.LAUNCHES)
 
 

@@ -1,5 +1,5 @@
-"""The bilateral-grid kernels of the CRF, each with its plain PyTorch
-version and a launch counter.
+"""The bilateral-grid kernels of the CRF and its direct window, each with
+its plain PyTorch version and a launch counter.
 
 The grid is canonical: ``[B, gy, gx, gc, gc, gc, C]`` float32, C
 innermost.  Node (ny, nx) sits at the corner of spatial tiles; a pixel
@@ -38,7 +38,10 @@ wsss_tpu/ops/crf/mxu_grid.py:
 and, in wsss_tpu/ops/crf/pallas_blur.py, ``flat_color_blur`` replaces
 color_blur_fused (:47) and the kernel of blur_color_axes (:84): one
 kernel and one count, on whole-F stripes for the first and on per-gr
-stripes plus one whole-F pass for the second.
+stripes plus one whole-F pass for the second.  ``direct_window`` (the
+CRF's exact window, ``meanfield.DirectBilateral``, whose plain version
+is ``DirectBilateral._filter``) replaces no TPU kernel: the reference's
+window is plain jnp.
 
 The aligned grid ``[B, nty, ntx, gc, gc, gc, C]`` has one spatial cell
 per pixel tile (no node row of its own): a pixel belongs to the cell of
@@ -68,7 +71,8 @@ LAUNCHES: Dict[str, int] = {'bilateral_splat': 0,
                             'bilateral_cube_blur': 0,
                             'bilateral_splat_aligned': 0,
                             'bilateral_slice_aligned': 0,
-                            'flat_color_blur': 0}
+                            'flat_color_blur': 0,
+                            'direct_window': 0}
 
 _FORCE_PLAIN = False
 
@@ -1339,4 +1343,157 @@ def flat_color_blur(x: torch.Tensor, passes: Sequence[Pass]
             plan.threads, _stream())
     LAUNCHES['flat_color_blur'] += 1
     _raise_on(rc, 'flat_color_blur')
+    return out
+
+
+# ---------------------------------------------------------------------------
+# direct window
+# ---------------------------------------------------------------------------
+
+class WindowTable:
+    """A direct window's offsets as ``direct_window`` reads them: `rows`,
+    one a dy from `dy0` on, each the run of dx ``lo..hi`` (an empty run
+    where the window skips a dy), and the spatial weights as a dense
+    table [2 rx + 1][ndy + 14], ``dense[dx + rx][dy - dy0 + 7]``: 0
+    where (dy, dx) is no offset and in the 7 zero rows at each end (a
+    kernel thread's pixels reach 7 rows past the table).  ValueError
+    unless the offsets are rows of consecutive dx, dy ascending (the form
+    the plain version's row-at-a-time loop assumes too)."""
+
+    def __init__(self, offs: Sequence[Tuple[int, int]],
+                 wspace: Sequence[float]):
+        if not offs or len(offs) != len(wspace):
+            raise ValueError(f'direct window: {len(offs)} offsets and '
+                             f'{len(wspace)} spatial weights')
+        rows: List[Tuple[int, int]] = []
+        dy0 = offs[0][0]
+        for i, (dy, dx) in enumerate(offs):
+            if rows and dy == dy0 + len(rows) - 1:
+                lo, hi = rows[-1]
+                if dx != hi + 1:
+                    raise ValueError(f'direct window: offset {i} ({dy}, '
+                                     f'{dx}) does not extend the run of '
+                                     f'dy {dy} ({lo}..{hi})')
+                rows[-1] = (lo, dx)
+                continue
+            if dy < dy0 + len(rows):
+                raise ValueError(f'direct window: offset {i} ({dy}, {dx}) '
+                                 'is out of dy order')
+            rows += [(1, 0)] * (dy - dy0 - len(rows))   # a dy skipped
+            rows.append((dx, dx))
+        self.dy0 = dy0
+        self.rows = tuple(rows)
+        self.rx = max(max(-dx, dx) for _, dx in offs)
+        nk = len(rows) + 2 * _WINDOW_PAD
+        dense = [0.0] * ((2 * self.rx + 1) * nk)
+        for (dy, dx), v in zip(offs, wspace):
+            dense[(dx + self.rx) * nk + dy - dy0 + _WINDOW_PAD] = float(v)
+        self.dense = dense
+        self._dev: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    @property
+    def ndy(self) -> int:
+        return len(self.rows)
+
+    def on(self, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """rows [ndy, 2] int32 and the dense weights float32 on `device`,
+        copied there once."""
+        if device not in self._dev:
+            self._dev[device] = (
+                torch.tensor(self.rows, dtype=torch.int32, device=device),
+                torch.tensor(self.dense, dtype=torch.float32, device=device))
+        return self._dev[device]
+
+
+# zero rows at each end of WindowTable.dense (csrc/direct_window.cu: kPad)
+_WINDOW_PAD = 7
+# the most channels a block takes (registers: G accumulators a pixel)
+_WINDOW_MAX_G = 32
+# the channel widths built (csrc/direct_window.cu: DW_CASE): the paths'
+# C 1, 5, 21 and 29, and powers of two between
+_WINDOW_G = (1, 2, 4, 5, 8, 16, 21, 29, 32)
+# accumulators a thread, P pixels x G channels (csrc/direct_window.cu:
+# rows_of)
+_WINDOW_ACCS = 128
+
+
+def _window_rows(g: int) -> int:
+    """Pixels (rows) a thread owns for g channels a thread."""
+    return max(1, min(_WINDOW_PAD + 1, _WINDOW_ACCS // g))
+
+
+def _window_slot(g: int, rx: int) -> int:
+    """Floats a ring slot: 32 + 2 rx pixels of the guide (4 floats) and
+    of x (g | 1 floats), rounded up to 16 bytes
+    (csrc/direct_window.cu: slot_floats)."""
+    return _round4((32 + 2 * rx) * (4 + (g | 1)))
+
+
+@dataclasses.dataclass(frozen=True)
+class DirectWindowPlan:
+    """How ``direct_window`` cuts [B, H, W, C]: blocks of one warp, each
+    `p` rows x 32 columns of one image and `g` channels (`groups`
+    groups; the last may hold fewer), walking the window's rows through
+    a ring of two slots (``_window_slot``)."""
+    g: int
+    groups: int
+    p: int
+    smem_bytes: int
+    grid: Tuple[int, int, int]
+
+
+@functools.lru_cache(maxsize=None)
+def direct_window_plan(b: int, h: int, w: int, c: int, rx: int
+                       ) -> DirectWindowPlan:
+    """The geometry of ``direct_window`` for B images of H x W, C
+    channels and a window reaching `rx` columns each side: the fewest
+    channel groups of at most 32 (every group computes its own weights),
+    each as wide as the narrowest width built that holds an even share
+    (the last group's channels past C are zeros); rows a thread by the
+    channels (about 128 accumulators a thread, 1-8 rows); a warp a block
+    (the card's tail of small blocks is short).  ValueError for an empty shape or a window
+    whose two staged rows do not fit a block."""
+    if min(b, h, w, c) < 1 or rx < 0:
+        raise ValueError(f'direct_window takes a non-empty shape and '
+                         f'window, got B={b} H={h} W={w} C={c} rx={rx}')
+    groups = -(-c // _WINDOW_MAX_G)
+    g = min(k for k in _WINDOW_G if k >= -(-c // groups))
+    p = _window_rows(g)
+    smem = 2 * _window_slot(g, rx) * 4
+    if smem > SMEM_BLOCK:
+        raise ValueError(f'direct_window: no block of {SMEM_BLOCK} bytes '
+                         f'holds two staged rows of {32 + 2 * rx} pixels '
+                         f'and {g} channels (rx={rx})')
+    return DirectWindowPlan(g, groups, p, smem,
+                            (-(-w // 32), -(-h // p), b * groups))
+
+
+def direct_window(img: torch.Tensor, x: torch.Tensor, table: WindowTable,
+                  srgb: float) -> torch.Tensor:
+    """The direct window of guides img [B,H,W,3] on x [B,H,W,C], both
+    float32 on the card: for each pixel p, the sum over the table's
+    offsets o with p + o in the image of
+    ``ws[o] * exp(-|I[p] - I[p+o]|^2 / (2 srgb^2)) * x[p + o]``, in one
+    launch (the plain version: ``meanfield.DirectBilateral._filter``).
+    Raises for CPU tensors and for a type or shape it does not take."""
+    if not _use_kernel(img, x):
+        raise ValueError('direct_window launches on CUDA tensors only '
+                         '(the plain version is DirectBilateral._filter)')
+    _check(img, 'img', torch.float32, 4)
+    _check(x, 'x', torch.float32, 4)
+    b, h, w, c = x.shape
+    if tuple(img.shape) != (b, h, w, 3):
+        raise ValueError(f'direct_window: guide {tuple(img.shape)} for x '
+                         f'{tuple(x.shape)}')
+    plan = direct_window_plan(b, h, w, c, table.rx)
+    rows, dense = table.on(x.device)
+    out = torch.empty_like(x)
+    fn = _build.entry('direct_window',
+                      (_P,) * 5 + (_I,) * 7 + (_F,) + (_I,) * 4 + (_P,))
+    rc = fn(img.data_ptr(), x.data_ptr(), out.data_ptr(), rows.data_ptr(),
+            dense.data_ptr(), b, h, w, c, table.dy0, table.ndy, table.rx,
+            -0.5 / (srgb * srgb), plan.g, plan.p, plan.groups,
+            plan.smem_bytes, _stream())
+    LAUNCHES['direct_window'] += 1
+    _raise_on(rc, 'direct_window')
     return out

@@ -371,40 +371,60 @@ def _shift2d(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     return padded[..., ay + dy:ay + dy + h, ax + dx:ax + dx + w, :]
 
 
+@functools.lru_cache(maxsize=None)
+def _window_offsets(sxy: float):
+    """The window of ``DirectBilateral`` for sxy: its radius, offsets
+    (dy, then dx, ascending; those within 3 sxy) and spatial weights."""
+    r = int(np.ceil(3.0 * sxy))
+    offs, wspace = [], []
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            d2 = dy * dy + dx * dx
+            if d2 > (3.0 * sxy) ** 2:
+                continue
+            offs.append((dy, dx))
+            wspace.append(float(np.exp(-0.5 * d2 / (sxy * sxy))))
+    return r, tuple(offs), tuple(wspace)
+
+
 class DirectBilateral:
     """Exact truncated windowed bilateral filter for small spatial sigmas
     (the VOC M7 HistoSegNet config's sxy = 80/48) and for colour cubes no
     grid can hold (ADP's srgb 4), on guide images [B,H,W,3] or one
     [H,W,3].  Truncated at radius ceil(3*sxy), offsets in the circle.
 
-    ``filter`` computes the per-offset colour weight maps anew at every
-    call, a row of offsets at a time.  The reference keeps them between
-    calls while they fit 256 MB an image; on the card reading kept maps
-    back costs more than computing them (measured on an H100: PERF.md),
-    so the port has the one path."""
+    On the card ``filter`` is one launch of the ``direct_window`` kernel
+    (kernels/bilateral.py), which computes every colour weight anew at
+    each filter: the reference keeps them between calls while they fit
+    256 MB an image, but on the card reading kept maps back costs more
+    than computing them (measured on an H100: PERF.md).  Its table of
+    offsets is built from ``offs`` and ``wspace`` at the first filter.
+    On the CPU, and under ``plain_versions()``, ``_filter`` is the plain
+    version."""
 
     def __init__(self, imgs: torch.Tensor, sxy: float, srgb: float):
-        self.r = int(np.ceil(3.0 * sxy))
-        offs, wspace = [], []
-        for dy in range(-self.r, self.r + 1):
-            for dx in range(-self.r, self.r + 1):
-                d2 = dy * dy + dx * dx
-                if d2 > (3.0 * sxy) ** 2:
-                    continue
-                offs.append((dy, dx))
-                wspace.append(float(np.exp(-0.5 * d2 / (sxy * sxy))))
-        self.offs = offs
-        self.wspace = wspace
-        self.img, self._squeeze = _batched(imgs.to(torch.float32))
+        self.r, offs, wspace = _window_offsets(float(sxy))
+        self.offs = list(offs)
+        self.wspace = list(wspace)
+        self.img, self._squeeze = _batched(
+            imgs.to(torch.float32).contiguous())
         self.srgb = srgb
+        self._table = None      # the kernel's, at the first filter
+        self._ws = None         # the plain version's, at the first filter
 
     def filter(self, x: torch.Tensor) -> torch.Tensor:
         global WINDOW_OFFSETS
         WINDOW_OFFSETS += len(self.offs)
         with span('wsss.window.filter'):
             if self._squeeze:
-                return self._filter(x[None])[0]
-            return self._filter(x)
+                x = x[None]
+            if K._use_kernel(self.img, x):
+                if self._table is None:
+                    self._table = K.WindowTable(self.offs, self.wspace)
+                out = K.direct_window(self.img, x, self._table, self.srgb)
+            else:
+                out = self._filter(x)
+            return out[0] if self._squeeze else out
 
     def _filter(self, x: torch.Tensor) -> torch.Tensor:
         """x [B,H,W,C] -> K @ x per image."""
@@ -422,8 +442,10 @@ class DirectBilateral:
         x_p = torch.nn.functional.pad(x, (0, 0, r, r, r, r))
         img_t = self.img.permute(0, 1, 3, 2)[:, :, None]     # [B,H,1,3,W]
         inv2s2 = 0.5 / (self.srgb * self.srgb)
-        ws_all = torch.tensor(self.wspace, dtype=torch.float32,
-                              device=x.device)
+        if self._ws is None or self._ws.device != x.device:
+            self._ws = torch.tensor(self.wspace, dtype=torch.float32,
+                                    device=x.device)
+        ws_all = self._ws
         acc = torch.zeros_like(x)
         i0 = 0
         while i0 < len(self.offs):
